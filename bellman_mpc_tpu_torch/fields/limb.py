@@ -1,0 +1,465 @@
+"""Limb-decomposed Montgomery field arithmetic on PyTorch tensors.
+
+Port of bellman_mpc_tpu/fields/limb.py.  A field element is a vector of
+``L`` 11-bit limbs held in int32, and a batch of elements is a tensor of
+shape ``(L, *batch)`` — limbs first, the same layout as the JAX package, so
+raw limb tensors compare bit for bit with the reference.
+
+Representation invariants (unchanged):
+  * limbs are canonical:   0 <= limb < 2^11   (int32 storage)
+  * values are "lazy":     0 <= value < 2*p
+  * unless stated otherwise values are in Montgomery form  x*R mod p.
+
+Carries use the reference's loop-free "flat" strategy (static carry folding
+plus a Hillis-Steele carry lookahead): a handful of tensor ops per carry
+chain instead of one op per limb.  Every result is the unique canonical-digit
+representation of a value the reference computes too, so the reference's CPU
+"scan" strategy and this one agree limb for limb.
+
+Constants live on the CPU and are copied to a tensor's device on first use
+there (no module-level device state).
+"""
+
+from __future__ import annotations
+
+from typing import Dict, List, Sequence, Tuple
+
+import numpy as np
+import torch
+
+LIMB_BITS = 11
+LIMB_MASK = (1 << LIMB_BITS) - 1
+
+
+def _shift_down(t: torch.Tensor, fill) -> torch.Tensor:
+    """out[0] = fill, out[i] = t[i-1] along the limb axis."""
+    head = torch.full_like(t[:1], fill)
+    return torch.cat([head, t[:-1]], dim=0)
+
+
+class LimbField:
+    """Montgomery arithmetic over GF(p) on ``(L, *batch)`` int32 limb tensors."""
+
+    def __init__(self, modulus: int, name: str = "F"):
+        self.p = modulus
+        self.name = name
+        b = LIMB_BITS
+        L = -(-(modulus.bit_length() + 6) // b)
+        self.L = L
+        self.nbytes = (b * L + 7) // 8
+        self.R = 1 << (b * L)
+        assert 64 * modulus <= self.R
+        self.n0inv = (-pow(modulus, -1, 1 << b)) % (1 << b)
+        self.r2 = (self.R * self.R) % modulus
+        self._byte_idx = np.asarray([(b * i) // 8 for i in range(L)])
+        self._bit_shift = np.asarray([(b * i) % 8 for i in range(L)])
+        self._dmax_lazy = tuple(
+            min(LIMB_MASK, (2 * modulus - 1) >> (b * i)) for i in range(L)
+        )
+        self._p_list = self._int_to_limbs(modulus)
+        self._2p_list = self._int_to_limbs(2 * modulus)
+        self.p0 = int(self._p_list[0])
+        self._cache: Dict[tuple, torch.Tensor] = {}
+
+    # ------------------------------------------------------------------ utils
+    def _int_to_limbs(self, v: int) -> List[int]:
+        return [(v >> (LIMB_BITS * i)) & LIMB_MASK for i in range(self.L)]
+
+    def _vec(self, values: Sequence[int], device) -> torch.Tensor:
+        """Cached 1-D int32 constant on `device`."""
+        key = (tuple(int(v) for v in values), str(torch.device(device)))
+        t = self._cache.get(key)
+        if t is None:
+            t = torch.tensor(key[0], dtype=torch.int32, device=device)
+            self._cache[key] = t
+        return t
+
+    def _bc(self, const_1d: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
+        """Broadcast an (n,)-shaped constant against an (n, *batch) tensor."""
+        return const_1d.reshape((const_1d.shape[0],) + (1,) * (like.dim() - 1))
+
+    def limbs_const(self, v: int, like: torch.Tensor) -> torch.Tensor:
+        """(L, 1, ...) limbs of the host int v, broadcastable against `like`."""
+        return self._bc(self._vec(self._int_to_limbs(v), like.device), like)
+
+    def zeros(self, batch_shape: Tuple[int, ...] = (), device="cpu") -> torch.Tensor:
+        return torch.zeros((self.L,) + tuple(batch_shape), dtype=torch.int32, device=device)
+
+    def const(self, value: int, batch_shape: Tuple[int, ...] = (), mont: bool = True,
+              device="cpu") -> torch.Tensor:
+        """Broadcast a host integer constant to an (L, *batch) tensor."""
+        v = value % self.p
+        if mont:
+            v = v * self.R % self.p
+        c = self._vec(self._int_to_limbs(v), device)
+        shape = (self.L,) + tuple(batch_shape)
+        return c.reshape((self.L,) + (1,) * len(batch_shape)).expand(shape)
+
+    def mont_one(self, batch_shape: Tuple[int, ...] = (), device="cpu") -> torch.Tensor:
+        return self.const(1, batch_shape, mont=True, device=device)
+
+    # ------------------------------------------------------- carry management
+    def _fold(self, t: torch.Tensor, steps: int = 4) -> torch.Tensor:
+        """Static carry folding: non-negative column sums < 2^30 become
+        digits <= 4096 in `steps` rounds.  The top carry is provably zero."""
+        for _ in range(steps):
+            t = (t & LIMB_MASK) + _shift_down(t >> LIMB_BITS, 0)
+        return t
+
+    @staticmethod
+    def _carry_scan(g: torch.Tensor, p: torch.Tensor) -> torch.Tensor:
+        """Inclusive prefix of the carry/borrow monoid along the limb axis
+        (log2(L) shift-combine steps)."""
+        n = g.shape[0]
+        shift = 1
+        while shift < n:
+            g_lo = torch.cat([torch.zeros_like(g[:shift]), g[:-shift]], dim=0)
+            p_lo = torch.cat([torch.ones_like(p[:shift]), p[:-shift]], dim=0)
+            g = g | (p & g_lo)
+            p = p & p_lo
+            shift *= 2
+        return g
+
+    def _normalize(self, t: torch.Tensor) -> torch.Tensor:
+        """Digits <= 4096 -> canonical digits < 2^11 (same value)."""
+        carry_out = self._carry_scan(t >= (1 << LIMB_BITS), t == LIMB_MASK)
+        carry_in = _shift_down(carry_out, False).to(torch.int32)
+        return (t + carry_in) & LIMB_MASK
+
+    def _sub_flat(self, x: torch.Tensor, m: torch.Tensor):
+        """x - m with borrow lookahead; returns (diff digits, total_borrow)."""
+        if m.dim() == 1:
+            m = self._bc(m, x)
+        d = x - m
+        borrow_out = self._carry_scan(d < 0, d == 0)
+        borrow_in = _shift_down(borrow_out, False).to(torch.int32)
+        return (d - borrow_in) & LIMB_MASK, borrow_out[-1]
+
+    def _cond_sub(self, x: torch.Tensor, m: torch.Tensor) -> torch.Tensor:
+        """Subtract the (L,) constant m when x >= m (branch-free)."""
+        d, borrow = self._sub_flat(x, m)
+        return torch.where(borrow, x, d)
+
+    def _p(self, device) -> torch.Tensor:
+        return self._vec(self._p_list, device)
+
+    def _2p(self, device) -> torch.Tensor:
+        return self._vec(self._2p_list, device)
+
+    # ------------------------------------------------------------- arithmetic
+    def add(self, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+        t = self._normalize(self._fold(a + b, steps=1))
+        return self._cond_sub(t, self._2p(t.device))
+
+    def sub(self, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+        # a + (2p - b); b < 2p so the inner subtraction never borrows.
+        twop = self._bc(self._2p(b.device), b).expand(b.shape)
+        nb, _ = self._sub_flat(twop, b)
+        return self.add(a, nb)
+
+    def neg(self, a: torch.Tensor) -> torch.Tensor:
+        twop = self._bc(self._2p(a.device), a).expand(a.shape)
+        t, _ = self._sub_flat(twop, a)
+        return self._cond_sub(t, self._2p(a.device))
+
+    def double(self, a: torch.Tensor) -> torch.Tensor:
+        return self.add(a, a)
+
+    def mul_cols(self, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+        """Schoolbook product columns of a*b: (L, *B) x2 -> (2L, *B) int32.
+
+        cols[c] = sum_{i+j=c} a_i * b_j <= L * (2^11-1)^2 < 2^27.2."""
+        L = self.L
+        a, b = torch.broadcast_tensors(a, b)
+        t = torch.zeros((2 * L,) + tuple(a.shape[1:]), dtype=torch.int32, device=a.device)
+        for i in range(L):
+            t[i : i + L] += a[i] * b
+        return t
+
+    def redc_cols(self, t: torch.Tensor, fold_steps: int = 4) -> torch.Tensor:
+        """Word-by-word Montgomery reduction of (2L, *B) non-negative columns.
+
+        Returns canonical-digit limbs of (T + m*p)/R; callers guarantee
+        T < p*R so the output is lazy (< 2p)."""
+        L = self.L
+        t = t.clone()
+        p_rest = self._bc(self._vec(self._p_list[1:], t.device), t[: L - 1])
+        carry = torch.zeros_like(t[0])
+        for i in range(L):
+            ti = t[i] + carry
+            m = ((ti & LIMB_MASK) * self.n0inv) & LIMB_MASK
+            carry = (ti + m * self.p0) >> LIMB_BITS
+            t[i + 1 : i + L] += m * p_rest
+        r = t[L:].clone()
+        r[0] += carry
+        return self._normalize(self._fold(r, steps=fold_steps))
+
+    def mul(self, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+        """Montgomery product a*b*R^{-1} mod p (lazy in, lazy out)."""
+        return self.redc_cols(self.mul_cols(a, b))
+
+    def square(self, a: torch.Tensor) -> torch.Tensor:
+        return self.mul(a, a)
+
+    def mul_const(self, a: torch.Tensor, c: int) -> torch.Tensor:
+        """Multiply by a host integer constant (Montgomery-encoded on the fly)."""
+        return self.mul(a, self.limbs_const(c % self.p * self.R % self.p, a))
+
+    def pow_const(self, a: torch.Tensor, e: int) -> torch.Tensor:
+        """a^e for a host integer exponent (left-to-right binary ladder; the
+        reference's multiply sequence, minus the products it discards)."""
+        r = self.mont_one(tuple(a.shape[1:]), a.device)
+        if e == 0:
+            return r
+        for bit in bin(e)[2:]:
+            r = self.mul(r, r)
+            if bit == "1":
+                r = self.mul(r, a)
+        return r
+
+    def inv(self, a: torch.Tensor) -> torch.Tensor:
+        """Batched Fermat inversion a^(p-2); maps 0 -> 0 (caller checks)."""
+        return self.pow_const(a, self.p - 2)
+
+    # ------------------------------------------------------------ comparisons
+    def canon(self, a: torch.Tensor) -> torch.Tensor:
+        """Reduce from lazy [0,2p) to canonical [0,p)."""
+        return self._cond_sub(a, self._p(a.device))
+
+    def eq(self, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+        return torch.all(self.canon(a) == self.canon(b), dim=0)
+
+    def is_zero(self, a: torch.Tensor) -> torch.Tensor:
+        return torch.all(self.canon(a) == 0, dim=0)
+
+    def select(self, cond, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+        """cond ? a : b with cond shaped like the batch."""
+        return torch.where(cond[None], a, b)
+
+    # ------------------------------------------------- Montgomery conversions
+    def to_mont(self, a_std: torch.Tensor) -> torch.Tensor:
+        return self.mul(a_std, self.limbs_const(self.r2, a_std))
+
+    def from_mont(self, a_mont: torch.Tensor) -> torch.Tensor:
+        return self.canon(self.mul(a_mont, self.limbs_const(1, a_mont)))
+
+    # ----------------------------------------------------------- host codecs
+    def encode(self, values: Sequence[int], mont: bool = True, device="cpu") -> torch.Tensor:
+        """Host ints -> (L, N) int32 tensor (vectorized bit extraction)."""
+        p = self.p
+        if mont:
+            R = self.R
+            values = [v % p * R % p for v in values]
+        else:
+            values = [v % p for v in values]
+        n = len(values)
+        raw = b"".join(v.to_bytes(self.nbytes, "little") for v in values)
+        u = np.frombuffer(raw, np.uint8).reshape(n, self.nbytes)
+        u = np.concatenate([u, np.zeros((n, 2), np.uint8)], axis=1)
+        j = self._byte_idx
+        chunk = (
+            u[:, j].astype(np.int32)
+            + (u[:, j + 1].astype(np.int32) << 8)
+            + (u[:, j + 2].astype(np.int32) << 16)
+        )
+        limbs = (chunk >> self._bit_shift) & LIMB_MASK
+        return torch.from_numpy(np.ascontiguousarray(limbs.T.astype(np.int32))).to(device)
+
+    def decode(self, arr: torch.Tensor, mont: bool = True) -> List[int]:
+        """(L, *batch) tensor -> list of host ints (canonical, std form)."""
+        a = self.from_mont(arr) if mont else self.canon(arr)
+        flat = a.reshape(self.L, -1).T.cpu().numpy().astype(np.int64)
+        n = flat.shape[0]
+        buf = np.zeros((n, self.nbytes + 2), np.int64)
+        for i in range(self.L):
+            v = flat[:, i] << int(self._bit_shift[i])
+            j = int(self._byte_idx[i])
+            buf[:, j] += v & 0xFF
+            buf[:, j + 1] += (v >> 8) & 0xFF
+            buf[:, j + 2] += v >> 16
+        raw = buf[:, : self.nbytes].astype(np.uint8).tobytes()
+        nb = self.nbytes
+        return [int.from_bytes(raw[i * nb : (i + 1) * nb], "little") for i in range(n)]
+
+    def pack_std(self, values: Sequence[int]) -> np.ndarray:
+        """Host ints -> (N, nbytes) uint8 (standard form, minimal wire size)."""
+        p = self.p
+        raw = b"".join((v % p).to_bytes(self.nbytes, "little") for v in values)
+        return np.frombuffer(raw, np.uint8).reshape(len(values), self.nbytes)
+
+    def unpack_device(self, u8: torch.Tensor) -> torch.Tensor:
+        """(N, nbytes) uint8 tensor -> (L, N) canonical std-form limbs."""
+        u = torch.nn.functional.pad(u8, (0, 2)).to(torch.int32)
+        j = torch.as_tensor(self._byte_idx, dtype=torch.long, device=u8.device)
+        chunk = u[:, j] | (u[:, j + 1] << 8) | (u[:, j + 2] << 16)
+        shifts = torch.as_tensor(self._bit_shift, dtype=torch.int32, device=u8.device)
+        return ((chunk >> shifts) & LIMB_MASK).T.contiguous()
+
+    def __repr__(self) -> str:
+        return f"LimbField({self.name}, L={self.L}, bits={self.p.bit_length()})"
+
+    # -------------------------------------------------- lazy column reduction
+    def lazy_mul_many(
+        self,
+        pairs: Sequence[Tuple[torch.Tensor, torch.Tensor]],
+        dmax_pairs: Sequence[Tuple[Tuple[int, ...], Tuple[int, ...]]] = None,
+    ) -> List["LazyCols"]:
+        """k unreduced products through ONE stacked product loop (operands
+        may be raw digit-wise sums, as long as their bounds say so)."""
+        k = len(pairs)
+        if dmax_pairs is None:
+            dmax_pairs = [(self._dmax_lazy, self._dmax_lazy)] * k
+        lhs = torch.stack([a for a, _ in pairs], dim=1)
+        rhs = torch.stack([b for _, b in pairs], dim=1)
+        cols = self.mul_cols(lhs, rhs)  # (2L, k, *B)
+        out = []
+        for i, (da, db) in enumerate(dmax_pairs):
+            hi = tuple(int(x) for x in np.convolve(
+                np.asarray(da, object), np.asarray(db, object)
+            )) + (0,)
+            assert max(hi) < (1 << 31), "product columns overflow int32"
+            out.append(LazyCols(self, cols[:, i], hi))
+        return out
+
+    def lazy_reduce_many(self, lcs: Sequence["LazyCols"], wide: bool = False) -> List[torch.Tensor]:
+        """Reduce k LazyCols through ONE stacked Montgomery reduction."""
+        cols = torch.stack([lc.cols for lc in lcs], dim=1)
+        hi = tuple(max(lc.hi[i] for lc in lcs) for i in range(2 * self.L))
+        r = LazyCols(self, cols, hi).reduce(wide=wide)
+        return [r[:, i] for i in range(len(lcs))]
+
+    def fold_digits(self, arr: torch.Tensor, dvec: Tuple[int, ...]):
+        """One value-preserving carry fold of an (L, *B) digit tensor."""
+        b = LIMB_BITS
+        assert sum(d << (b * i) for i, d in enumerate(dvec)) < self.R
+        arr = (arr & LIMB_MASK) + _shift_down(arr >> b, 0)
+        out = tuple(
+            min(dvec[i], LIMB_MASK) + (dvec[i - 1] >> b if i else 0)
+            for i in range(len(dvec))
+        )
+        return arr, out
+
+
+class LazyFp2:
+    """Unreduced Fp2 value: a pair of LazyCols (Karatsuba re/im columns)."""
+
+    __slots__ = ("re", "im")
+
+    def __init__(self, re: "LazyCols", im: "LazyCols"):
+        self.re = re
+        self.im = im
+
+    def __add__(self, o: "LazyFp2") -> "LazyFp2":
+        return LazyFp2(self.re + o.re, self.im + o.im)
+
+    def __sub__(self, o: "LazyFp2") -> "LazyFp2":
+        return LazyFp2(self.re - o.re, self.im - o.im)
+
+    def scale(self, k: int) -> "LazyFp2":
+        return LazyFp2(self.re.scale(k), self.im.scale(k))
+
+    def __rmul__(self, k: int) -> "LazyFp2":
+        return self.scale(k)
+
+
+class LazyCols:
+    """Unreduced Montgomery product columns with host-side bound proofs.
+
+    Represents T = sum_i cols[i] * 2^(11 i) with 0 <= cols[i] <= hi[i]
+    (hi tracked exactly on the host, as in the reference)."""
+
+    __slots__ = ("f", "cols", "hi")
+
+    def __init__(self, f: LimbField, cols: torch.Tensor, hi: Tuple[int, ...]):
+        self.f = f
+        self.cols = cols
+        self.hi = hi
+
+    def fold(self, steps: int = 1) -> "LazyCols":
+        b = LIMB_BITS
+        n = len(self.hi)
+        assert sum(h << (b * i) for i, h in enumerate(self.hi)) < 1 << (b * n)
+        cols, hi = self.cols, list(self.hi)
+        for _ in range(steps):
+            cols = (cols & LIMB_MASK) + _shift_down(cols >> b, 0)
+            hi = [min(hi[i], LIMB_MASK) + (hi[i - 1] >> b if i else 0) for i in range(n)]
+        return LazyCols(self.f, cols, tuple(hi))
+
+    def _folded_to(self, limit: int) -> "LazyCols":
+        out = self
+        while max(out.hi) > limit:
+            out = out.fold()
+        return out
+
+    def __add__(self, other: "LazyCols") -> "LazyCols":
+        a, b = self, other
+        if max(x + y for x, y in zip(a.hi, b.hi)) >= (1 << 31):
+            a = a._folded_to(1 << 29)
+            b = b._folded_to(1 << 29)
+        return LazyCols(a.f, a.cols + b.cols, tuple(x + y for x, y in zip(a.hi, b.hi)))
+
+    def __sub__(self, other: "LazyCols") -> "LazyCols":
+        f = self.f
+        b = LIMB_BITS
+        me, oth = self, other
+        if max(x + 2 * y for x, y in zip(me.hi, oth.hi)) >= (1 << 31) - (1 << 12):
+            me = me._folded_to(1 << 28)
+            oth = oth._folded_to(1 << 28)
+        # Offset Q = 0 (mod p) whose columns dominate oth.hi.
+        v = sum(h << (b * i) for i, h in enumerate(oth.hi))
+        corr = (-v) % f.p
+        q = list(oth.hi)
+        for i in range(f.L):
+            q[i] += (corr >> (b * i)) & LIMB_MASK
+        qa = f._bc(f._vec(q, me.cols.device), me.cols)
+        return LazyCols(f, me.cols - oth.cols + qa, tuple(a + qi for a, qi in zip(me.hi, q)))
+
+    def scale(self, k: int) -> "LazyCols":
+        assert k >= 0
+        out = self if k == 0 else self._folded_to(((1 << 31) - 1) // k)
+        return LazyCols(out.f, out.cols * k, tuple(h * k for h in out.hi))
+
+    def __rmul__(self, k: int) -> "LazyCols":
+        return self.scale(k)
+
+    def reduce(self, wide: bool = False) -> torch.Tensor:
+        """ONE Montgomery reduction -> lazy element (<2p, canonical digits),
+        with the reference's host-side proof obligations (value bound, int32
+        REDC growth, fold schedule)."""
+        f = self.f
+        b = LIMB_BITS
+        L = f.L
+        T = sum(h << (b * i) for i, h in enumerate(self.hi))
+        limit = 3 * f.p * f.R if wide else f.p * f.R
+        assert T < limit, "lazy accumulation exceeds the REDC value bound"
+
+        def _simulate(hi):
+            w = list(hi)
+            carry = 0
+            for i in range(L):
+                ti = w[i] + carry
+                peak = ti + LIMB_MASK * f.p0
+                if peak >= (1 << 31):
+                    return None
+                carry = peak >> b
+                for j in range(1, L):
+                    w[i + j] += LIMB_MASK * f._p_list[j]
+                    if w[i + j] >= (1 << 31):
+                        return None
+            r_hi = w[L:] + [0]
+            r_hi[0] += carry
+            return r_hi
+
+        lc = self
+        r_hi = _simulate(lc.hi)
+        while r_hi is None:
+            lc = lc.fold()
+            r_hi = _simulate(lc.hi)
+        h = max(r_hi)
+        steps = 0
+        while h > 4094:
+            h = LIMB_MASK + (h >> b)
+            steps += 1
+        # wide=True admits T < 3pR (REDC output < 4p); like the reference,
+        # no conditional subtraction follows, so raw limbs stay identical.
+        return f.redc_cols(lc.cols, fold_steps=max(steps, 1))

@@ -1,0 +1,98 @@
+"""The BLS12-381 pairing engine of the port.
+
+Counterpart of bellman_mpc_tpu/groth16/engine.py and groth16/bls12.py for
+the main path: protocol-level group elements are host affine points
+(tuples / None); the bulk fixed-base batches of setup (`batch_mul`) run as
+one device ladder (ops/msm.batch_mul_host) on the engine's `device`, and
+pairings run on the host oracle (curves/pairing_host.py) — the route the
+reference takes on the CPU (bls12.py:149-155).
+"""
+
+from __future__ import annotations
+
+from typing import List, Sequence, Tuple
+
+import torch
+
+from ..curves import pairing_host as ph
+from ..curves.device import DeviceGroup, g1_device, g2_device
+from ..fields import bls12_381 as bc
+from ..fields.tower import FP12_ONE, fp12_eq, fp12_is_one, fp12_mul
+from ..ops.msm import batch_mul_host
+
+_MSM_DEVICE_THRESHOLD = 4  # below this a host loop beats kernel dispatch
+
+
+class _BlsGroup:
+    """Group operation surface the protocol code is written against."""
+
+    def __init__(self, device_group: DeviceGroup, name: str, device):
+        self.device_group = device_group
+        self.hostg = device_group.host
+        self.name = name
+        self.device = torch.device(device)
+
+    def identity(self):
+        return None
+
+    def generator(self):
+        return self.hostg.generator
+
+    def is_identity(self, p) -> bool:
+        return p is None
+
+    def add(self, p, q):
+        return self.hostg.add(p, q)
+
+    def neg(self, p):
+        return self.hostg.neg(p)
+
+    def mul(self, p, k: int):
+        return self.hostg.mul(p, k)
+
+    def batch_mul(self, base, exps: Sequence[int]) -> List:
+        """[base * e for e in exps] (replaces generator.rs:311-328's wNAF)."""
+        if base is None:
+            return [None] * len(exps)
+        if len(exps) < _MSM_DEVICE_THRESHOLD:
+            return [self.mul(base, e) for e in exps]
+        return batch_mul_host(self.device_group, base, [e % bc.R for e in exps], self.device)
+
+
+class Bls12Engine:
+    """BLS12-381: scalar field, the two source groups, host pairing."""
+
+    name = "bls12_381"
+
+    def __init__(self, device="cpu"):
+        self.device = torch.device(device)
+        self.fr_host = bc.fr_host
+        self.fr = bc.fr
+        self.g1 = _BlsGroup(g1_device, "G1", device)
+        self.g2 = _BlsGroup(g2_device, "G2", device)
+
+    def multi_miller_loop(self, terms: Sequence[Tuple[object, object]]):
+        acc = FP12_ONE
+        for p, q in terms:
+            if p is not None and q is not None:
+                acc = fp12_mul(acc, ph.miller_loop(p, q))
+        return acc
+
+    def final_exponentiation(self, ml):
+        return ph.final_exponentiation(ml)
+
+    def pairing(self, p, q):
+        return self.final_exponentiation(self.multi_miller_loop([(p, q)]))
+
+    def pairing_product_is_one(self, terms) -> bool:
+        """prod_i e(p_i, q_i) == 1 (verifier.rs:49-56 shape), host loop."""
+        return self.gt_is_one(self.final_exponentiation(self.multi_miller_loop(terms)))
+
+    def gt_eq(self, a, b) -> bool:
+        return fp12_eq(a, b)
+
+    def gt_is_one(self, a) -> bool:
+        return fp12_is_one(a)
+
+    def prepare_g2(self, q):
+        return q

@@ -1,0 +1,523 @@
+"""The MSM window-fold kernels: plain PyTorch versions and CUDA wrappers.
+
+Counterpart of bellman_mpc_tpu/ops/pallas_kernels.py for the three TPU
+kernels on the prover's main path:
+
+  * K3 `rns_mul_many`       <- `_jit_rns_mul_pallas` / `_rns_mul_block`
+    (stacked RNS Montgomery multiply on the padded (80, T) layout);
+  * K1 `rns_fold_window`    <- `_jit_mixed_add_pallas` (one G1 fold window:
+    acc <- acc + sign*Q by the complete mixed addition, b3 = 12);
+  * K2 `rns_fold_window_g2` <- `_jit_mixed_add_pallas_g2` (the same on the
+    G2 twist over Fp2, b3 = 12(1+u), Karatsuba grouping of `_ShimG2Ops`).
+
+Each wrapper takes the plain PyTorch version ONLY for tensors on the CPU; a
+CUDA tensor goes to the hand-written kernel (csrc/fold_kernels.cu) or the
+wrapper raises.  There is no fallback and no switch around the kernels.
+
+The kernels never re-derive the RNS bound bookkeeping.  The K of every
+subtraction and negation of the mixed addition (RnsVal.__sub__ / neg add
+K*p, K = ceil(bound)) is produced by `fold_schedule`, which runs the very
+formula the plain versions run (`rns_point.point_add_mixed` over the padded
+shim) on a one-lane host dummy and records each K in call order.  The
+kernels consume that K*p table in the same order, so their residues equal
+the plain versions' bit for bit.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+import os
+import shutil
+import subprocess
+import sys
+import time
+from fractions import Fraction
+from pathlib import Path
+from typing import Dict, List, Tuple
+
+import numpy as np
+import torch
+
+from ..curves import rns_point as rpt
+from ..curves.rns_point import RnsG1Ops
+from ..fields.rns import RnsVal
+
+PAD_B = 40  # B channels at padded rows [0, 40) (35 real + 5 pad)
+PAD_C = 80  # B' + m_r at padded rows [40, 80) (36 real + 4 pad)
+G1_CAP = 128  # accumulator bound caps of the fold (in units of p)
+G2_CAP = 256
+# number of K*p residue rows each kernel consumes (one per sub/neg of the
+# formula, in csrc/fold_kernels.cu's order); checked against fold_schedule
+G1_NUM_K = 5
+G2_NUM_K = 45
+
+# Launch counts: each wrapper adds one where it launches its CUDA kernel.
+launch_counts: Dict[str, int] = {
+    "rns_mul_many": 0, "rns_fold_window": 0, "rns_fold_window_g2": 0,
+}
+
+
+def reset_launch_counts() -> None:
+    for k in launch_counts:
+        launch_counts[k] = 0
+
+
+# ----------------------------------------------------------- padded layout
+
+
+@functools.lru_cache(maxsize=None)
+def pad_consts(f) -> Dict[str, np.ndarray]:
+    """Constants of the 80-row padded layout (the reference's
+    `_rns_pallas_consts` without the int8 split), as numpy int64 arrays.
+
+    B channels at rows [0, 35), B' at [40, 75), m_r at 75; pad rows carry
+    modulus 1 (their residues stay 0 through every stage)."""
+    k = f.k
+    rows = np.concatenate([np.arange(k), PAD_B + np.arange(k + 1)])
+    m_pad = np.ones((PAD_C,), np.int64)
+    m_pad[rows] = np.asarray(f.moduli, np.int64)
+    kappa = np.zeros((PAD_C,), np.int64)
+    kappa[:k] = f.kappa_np[:k]
+    minv_hi = np.zeros((PAD_B,), np.int64)  # Hi-local: B' at 0..34, m_r at 35
+    minv_hi[:k] = f.minv_np[k : 2 * k]
+    minv_hi[k] = f.minv_np[2 * k]
+    ifac2_hi = np.zeros((PAD_B,), np.int64)
+    ifac2_hi[:k] = f.ifac2_np[k : 2 * k]
+    mp_mod_b = np.zeros((PAD_B,), np.int64)
+    mp_mod_b[:k] = f.mp_mod_np[:k]
+    m_e2 = m_pad[:PAD_B].copy()  # ext2 targets [B (35), m_r, pad]
+    m_e2[k] = f.mr
+    W1p = np.zeros((PAD_B, PAD_B), np.int64)  # [hi-local target, B source]
+    W1p[: k + 1, :k] = f.W1_np
+    W2p = np.zeros((PAD_B, PAD_B), np.int64)  # [ext2 target, hi-local source]
+    W2p[: k + 1, :k] = f.W2_np
+    pmod = np.asarray([f.p % int(m) for m in m_pad], np.int64)
+    return dict(rows=rows, m_pad=m_pad, kappa=kappa, minv_hi=minv_hi,
+                ifac2_hi=ifac2_hi, mp_mod_b=mp_mod_b, m_e2=m_e2, W1p=W1p,
+                W2p=W2p, pmod=pmod)
+
+
+_DEV_CACHE: Dict[tuple, torch.Tensor] = {}
+
+
+def _dev_const(f, key: str, device) -> torch.Tensor:
+    ck = (id(f), key, str(torch.device(device)))
+    t = _DEV_CACHE.get(ck)
+    if t is None:
+        t = torch.from_numpy(pad_consts(f)[key]).to(device)
+        _DEV_CACHE[ck] = t
+    return t
+
+
+def rns_pad_rows(f, x: torch.Tensor) -> torch.Tensor:
+    """(71, *B) residues -> (80, *B) padded layout (zero pad rows)."""
+    rows = _dev_const(f, "rows", x.device)
+    out = torch.zeros((PAD_C,) + tuple(x.shape[1:]), dtype=x.dtype, device=x.device)
+    out[rows] = x
+    return out
+
+
+def rns_unpad_rows(f, x: torch.Tensor) -> torch.Tensor:
+    return x[_dev_const(f, "rows", x.device)]
+
+
+def pad_rns_table(f, tab):
+    """RNS affine tables (x, y) with leading channel axis 71 -> the 80-row
+    layout the fold kernels consume (the (0,0) sentinel is preserved)."""
+    return tuple(rns_pad_rows(f, t) for t in tab)
+
+
+# ------------------------------------------------------ plain K3 (the block)
+
+
+def _col(f, key, like, lo=0, hi=None):
+    c = _dev_const(f, key, like.device)[lo:hi]
+    return c.reshape((c.shape[0],) + (1,) * (like.dim() - 1))
+
+
+def rns_mul_block_plain(f, x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
+    """One RNS Montgomery multiply on padded (80, T) residue tiles: the
+    reference's `_rns_mul_block`, stage for stage, with exact integer
+    reductions and float64 products for the two base extensions."""
+    k = f.k
+    m = _col(f, "m_pad", x)
+    m_hi = _col(f, "m_pad", x, PAD_B)
+    m_b = _col(f, "m_pad", x, 0, PAD_B)
+    m_e2 = _col(f, "m_e2", x)
+    t = (x.to(torch.int64) * y.to(torch.int64)) % m
+    xi = (t * _col(f, "kappa", x)) % m
+    W1 = _dev_const(f, "W1p", x.device).to(torch.float64)
+    qp = torch.matmul(W1, xi[:PAD_B].to(torch.float64)).to(torch.int64) % m_hi
+    sv = t[PAD_B:] + qp
+    sv = torch.where(sv >= m_hi, sv - m_hi, sv)
+    rp = (sv * _col(f, "minv_hi", x)) % m_hi
+    xi2 = (rp * _col(f, "ifac2_hi", x)) % m_hi
+    W2 = _dev_const(f, "W2p", x.device).to(torch.float64)
+    ext2 = torch.matmul(W2, xi2.to(torch.float64)).to(torch.int64) % m_e2
+    d = ext2[k] - rp[k]
+    d = torch.where(d < 0, d + f.mr, d)
+    alpha = (d * f.mpinv_mr) % f.mr
+    corr = (alpha[None] * _col(f, "mp_mod_b", x)) % m_b
+    rB = ext2 - corr
+    rB = torch.where(rB < 0, rB + m_b, rB)
+    rB[k] = 0  # m_r's slot in the B block
+    return torch.cat([rB, rp], dim=0).to(torch.int32)
+
+
+class PadShimField:
+    """RnsField facade over the 80-row padded layout (the reference's
+    `_PadShimField`): exactly the surface RnsVal and the point formulas
+    touch.  K*p residues are exact (K * (p mod m)) mod m; `record`, when
+    given, collects every K in call order (the kernels' schedule)."""
+
+    C = PAD_C
+
+    def __init__(self, real, device, record: List[int] = None):
+        self.real = real
+        self.p = real.p
+        self.Mmin = real.Mmin
+        self.M = real.M
+        self.k = real.k
+        self._m = _dev_const(real, "m_pad", device).reshape(PAD_C, 1)
+        self._m32 = self._m.to(torch.int32)
+        self._pmod = _dev_const(real, "pmod", device).reshape(PAD_C, 1)
+        self.record = record
+
+    def m_bc(self, like):
+        return self._m32
+
+    def reduce(self, t):
+        return (t.to(torch.int64) % self._m).to(torch.int32)
+
+    def kp_table(self, K: int, like):
+        if self.record is not None:
+            self.record.append(K)
+        return ((K * self._pmod) % self._m).to(torch.int32)
+
+    def mul_many(self, pairs):
+        T = pairs[0][0].res.shape[-1]
+        xs = torch.cat([a.res for a, _ in pairs], dim=-1)
+        ys = torch.cat([b.res for _, b in pairs], dim=-1)
+        res = rns_mul_block_plain(self.real, xs, ys)
+        outs = []
+        for i, (a, b) in enumerate(pairs):
+            bound = a.a * b.a * Fraction(self.p, self.M) + (self.k + 1)
+            if bound.denominator != 1:
+                bound = Fraction(bound.numerator // bound.denominator + 1)
+            outs.append(RnsVal(self, res[..., i * T : (i + 1) * T], bound))
+        return outs
+
+
+class ShimG2Ops:
+    """Fp2 coordinate ops over PAIRS of per-component RnsVals (c0, c1) —
+    the reference's `_ShimG2Ops` (same Karatsuba grouping, same order)."""
+
+    fp2 = True
+
+    def __init__(self, f, b3c: int):
+        self.f = f
+        self.b3c = b3c
+
+    def add(self, a, b):
+        return (a[0] + b[0], a[1] + b[1])
+
+    def sub(self, a, b):
+        return (a[0] - b[0], a[1] - b[1])
+
+    def neg(self, a):
+        return (a[0].neg(), a[1].neg())
+
+    def mul_b3(self, a):
+        return ((a[0] - a[1]).scale(self.b3c), (a[0] + a[1]).scale(self.b3c))
+
+    def scale3(self, a):
+        return (a[0].scale(3), a[1].scale(3))
+
+    def mul_many(self, pairs):
+        sub = []
+        for a, b in pairs:
+            a0, a1 = a
+            b0, b1 = b
+            sub += [(a0, b0), (a1, b1), (a0 + a1, b0 + b1)]
+        prods = self.f.mul_many(sub)
+        out = []
+        for i in range(len(pairs)):
+            t0, t1, t2 = prods[3 * i : 3 * i + 3]
+            out.append((t0 - t1, t2 - t0 - t1))
+        return out
+
+    def select(self, cond, a, b):
+        return tuple(
+            RnsVal(self.f, torch.where(cond[None], x.res, y.res), max(x.a, y.a))
+            for x, y in zip(a, b)
+        )
+
+
+def _stored_zero(f, r: torch.Tensor) -> torch.Tensor:
+    """(80, T) tile -> (T,) bool: every B row exactly zero."""
+    return torch.all(r[: f.k] == 0, dim=0)
+
+
+def fold_window_g1_plain(f, b3: int, acc, qx, qy, sg, tab_n: int, cap: int, record=None):
+    """Plain K1 on flat (80, T) tiles: the body of the reference's
+    `_jit_mixed_add_pallas` kernel, formula for formula."""
+    shim = PadShimField(f, qx.device, record)
+    ops = RnsG1Ops(shim, b3)
+    capf, tab_a = Fraction(cap), Fraction(tab_n)
+    accv = tuple(RnsVal(shim, r, capf) for r in acc)
+    qxv = RnsVal(shim, qx, tab_a)
+    qyv0 = RnsVal(shim, qy, tab_a)
+    # identity sentinel BEFORE the sign flip (neg adds K*p to the exact 0)
+    inf = _stored_zero(f, qx) & _stored_zero(f, qy)
+    qyv = ops.select(sg == 1, qyv0.neg(), qyv0)
+    added = rpt.point_add_mixed(ops, accv, (qxv, qyv))
+    assert max(v.a for v in added) <= capf, "fold bound escape"
+    return tuple(torch.where(inf[None], a_in, v.res) for a_in, v in zip(acc, added))
+
+
+def fold_window_g2_plain(f, b3c: int, acc, q, sg, tab_n: int, cap: int, record=None):
+    """Plain K2 on flat (80, T) tiles: acc = 6 tiles (X0, X1, Y0, Y1, Z0,
+    Z1), q = 4 tiles (x0, x1, y0, y1) — the body of `_jit_mixed_add_pallas_g2`."""
+    shim = PadShimField(f, sg.device, record)
+    ops = ShimG2Ops(shim, b3c)
+    capf, tab_a = Fraction(cap), Fraction(tab_n)
+    accv = tuple((RnsVal(shim, acc[2 * i], capf), RnsVal(shim, acc[2 * i + 1], capf)) for i in range(3))
+    qx = (RnsVal(shim, q[0], tab_a), RnsVal(shim, q[1], tab_a))
+    qy0 = (RnsVal(shim, q[2], tab_a), RnsVal(shim, q[3], tab_a))
+    inf = _stored_zero(f, q[0]) & _stored_zero(f, q[1]) & _stored_zero(f, q[2]) & _stored_zero(f, q[3])
+    qy = ops.select(sg == 1, ops.neg(qy0), qy0)
+    added = rpt.point_add_mixed(ops, accv, (qx, qy))
+    assert max(c.a for v in added for c in v) <= capf, "g2 fold bound escape"
+    return tuple(
+        torch.where(inf[None], acc[2 * i + c], added[i][c].res) for i in range(3) for c in range(2)
+    )
+
+
+@functools.lru_cache(maxsize=None)
+def fold_schedule(f, b, tab_n: int, cap: int, g2: bool) -> Tuple[int, ...]:
+    """The K of every sub/neg of one fold window, in call order: the plain
+    formula replayed on one host lane (its bookkeeping asserts every bound)."""
+    z = torch.zeros((PAD_C, 1), dtype=torch.int32)
+    sg = torch.zeros((1,), dtype=torch.int32)
+    ks: List[int] = []
+    if g2:
+        fold_window_g2_plain(f, b, (z,) * 6, (z,) * 4, sg, tab_n, cap, record=ks)
+    else:
+        fold_window_g1_plain(f, b, (z,) * 3, z, z, sg, tab_n, cap, record=ks)
+    return tuple(ks)
+
+
+def _kp_rows(f, ks: Tuple[int, ...], device) -> torch.Tensor:
+    """(len(ks), 80) int32 residues of K*p per padded row (exact host ints)."""
+    ck = (id(f), ("kp", ks), str(torch.device(device)))
+    t = _DEV_CACHE.get(ck)
+    if t is None:
+        m_pad = pad_consts(f)["m_pad"]
+        arr = np.asarray([[(K * f.p) % int(m) for m in m_pad] for K in ks], np.int32)
+        t = torch.from_numpy(arr).to(device)
+        _DEV_CACHE[ck] = t
+    return t
+
+
+# --------------------------------------------------------- the CUDA library
+
+_PKG = Path(__file__).resolve().parents[1]
+_CSRC = _PKG / "csrc"
+_BUILD = _PKG / "build"
+_SO = _BUILD / "libbmt_fold.so"
+_lib = None
+
+
+def _nvcc() -> str:
+    exe = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
+    if not Path(exe).exists():
+        raise RuntimeError("nvcc not found: the CUDA kernels need the CUDA toolkit")
+    return exe
+
+
+def build(verbose: bool = False) -> float:
+    """Compile csrc/*.cu for sm_90a into build/libbmt_fold.so (nvcc, plain C
+    entry points).  Returns the build seconds; raises with nvcc's output on
+    failure.  verbose prints ptxas's register and shared-memory report."""
+    _BUILD.mkdir(parents=True, exist_ok=True)
+    srcs = sorted(str(p) for p in _CSRC.glob("*.cu"))
+    tmp = _SO.with_name(f"{_SO.name}.{os.getpid()}.tmp")
+    cmd = [_nvcc(), "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+           "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v", "-o", str(tmp)] + srcs
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stdout}\n{proc.stderr}")
+    os.replace(tmp, _SO)
+    if verbose:
+        print(proc.stderr.strip(), file=sys.stderr)
+    return time.perf_counter() - t0
+
+
+def _load():
+    global _lib
+    if _lib is None:
+        if not _SO.exists():
+            build()
+        lib = ctypes.CDLL(str(_SO))
+        P, I = ctypes.c_void_p, ctypes.c_int
+        lib.bmt_rns_mul.argtypes = [P, P, P, P, I, P]
+        lib.bmt_fold_g1.argtypes = [P] * 6 + [P] * 3 + [P, P, I, I, P]
+        lib.bmt_fold_g2.argtypes = [P] * 11 + [P] * 6 + [P, P, I, I, P]
+        for fn in (lib.bmt_rns_mul, lib.bmt_fold_g1, lib.bmt_fold_g2):
+            fn.restype = ctypes.c_int
+        _lib = lib
+    return _lib
+
+
+def kernel_consts_np(f) -> np.ndarray:
+    """The kernels' constant block (uint32 words, see `Consts` in
+    csrc/fold_kernels.cu): per padded row m, floor(2^32/m), kappa, M^-1
+    (Hi rows), (M'/m'_j)^-1 (B' rows), M' mod m (B rows); then W1 and W2
+    transposed to [source][target]; then m_r and M'^-1 mod m_r."""
+    c = pad_consts(f)
+    k = f.k
+    m = c["m_pad"]
+    mu = np.asarray([min((1 << 32) // int(x), (1 << 32) - 1) for x in m], np.int64)
+    minv = np.zeros(PAD_C, np.int64)
+    minv[PAD_B:] = c["minv_hi"]
+    ifac2 = np.zeros(PAD_C, np.int64)
+    ifac2[PAD_B:] = c["ifac2_hi"]
+    mpmod = np.zeros(PAD_C, np.int64)
+    mpmod[:PAD_B] = c["mp_mod_b"]
+    W1T = f.W1_np.T.reshape(-1)  # (k sources, k+1 targets)
+    W2T = f.W2_np.T.reshape(-1)
+    words = np.concatenate([m, mu, c["kappa"], minv, ifac2, mpmod, W1T, W2T,
+                            np.asarray([f.mr, f.mpinv_mr], np.int64)])
+    assert words.shape[0] == 6 * PAD_C + 2 * k * (k + 1) + 2
+    return words.astype(np.uint32).view(np.int32)
+
+
+def _kernel_consts(f, device) -> torch.Tensor:
+    ck = (id(f), "kernel_consts", str(torch.device(device)))
+    t = _DEV_CACHE.get(ck)
+    if t is None:
+        t = torch.from_numpy(kernel_consts_np(f)).to(device)
+        _DEV_CACHE[ck] = t
+    return t
+
+
+def _check_tiles(tiles, lanes: int, device) -> None:
+    for t in tiles:
+        if t.device != device or t.dtype != torch.int32 or not t.is_contiguous():
+            raise ValueError("fold kernels take contiguous int32 tensors on one CUDA device")
+        if tuple(t.shape) != (PAD_C, lanes):
+            raise ValueError(f"expected a ({PAD_C}, {lanes}) tile, got {tuple(t.shape)}")
+
+
+def _device_kind(t: torch.Tensor) -> str:
+    if t.device.type in ("cpu", "cuda"):
+        return t.device.type
+    raise ValueError(f"unsupported device {t.device}")
+
+
+def _stream(device) -> ctypes.c_void_p:
+    return ctypes.c_void_p(torch.cuda.current_stream(device).cuda_stream)
+
+
+def _raise_on(err: int, name: str) -> None:
+    if err != 0:
+        raise RuntimeError(f"{name}: CUDA error {err}")
+
+
+# ----------------------------------------------------------------- wrappers
+
+
+def rns_mul_many(f, xs: torch.Tensor, ys: torch.Tensor) -> torch.Tensor:
+    """K3: stacked RNS Montgomery multiply of (71, *S) canonical residues
+    (the reference's `rns_mul_many_pallas`); padded to 80 rows inside."""
+    shape = xs.shape
+    n = int(np.prod(shape[1:])) if len(shape) > 1 else 1
+    xp = rns_pad_rows(f, xs.reshape(f.C, n).to(torch.int32)).contiguous()
+    yp = rns_pad_rows(f, ys.reshape(f.C, n).to(torch.int32)).contiguous()
+    if _device_kind(xp) == "cpu":
+        out = rns_mul_block_plain(f, xp, yp)
+    else:
+        _check_tiles((xp, yp), n, xp.device)
+        out = torch.empty_like(xp)
+        lib = _load()
+        err = lib.bmt_rns_mul(xp.data_ptr(), yp.data_ptr(), out.data_ptr(),
+                              _kernel_consts(f, xp.device).data_ptr(), n, _stream(xp.device))
+        _raise_on(err, "bmt_rns_mul")
+        launch_counts["rns_mul_many"] += 1
+    return rns_unpad_rows(f, out).reshape(shape)
+
+
+def _tab_n(tab_bound) -> int:
+    tb = Fraction(tab_bound)
+    return int(tb) if tb == int(tb) else int(tb) + 1
+
+
+def rns_fold_window(f, b3: int, acc_res, q, sgn, tab_bound, cap):
+    """K1: one G1 fold window, acc (+)= sign * table-point.
+
+    acc_res: 3-tuple of (80, *batch) int32 padded residues; q: (qx, qy)
+    padded residues of the gathered affine points; sgn: (*batch) bool.
+    Returns the updated 3-tuple (the reference's `rns_fold_window_pallas`)."""
+    shape = acc_res[0].shape
+    lanes = int(np.prod(shape[1:]))
+    flat = [r.reshape(PAD_C, lanes).contiguous() for r in acc_res]
+    qf = [r.reshape(PAD_C, lanes).contiguous() for r in q]
+    sg = sgn.reshape(lanes).to(torch.int32).contiguous()
+    tab_n, cap = _tab_n(tab_bound), int(cap)
+    if _device_kind(sg) == "cpu":
+        outs = fold_window_g1_plain(f, b3, flat, qf[0], qf[1], sg, tab_n, cap)
+    else:
+        dev = sg.device
+        _check_tiles(flat + qf, lanes, dev)
+        ks = fold_schedule(f, b3, tab_n, cap, False)
+        assert len(ks) == G1_NUM_K, "G1 schedule does not match the kernel"
+        kp = _kp_rows(f, ks, dev)
+        outs = tuple(torch.empty_like(flat[0]) for _ in range(3))
+        lib = _load()
+        err = lib.bmt_fold_g1(
+            *(t.data_ptr() for t in flat + qf), sg.data_ptr(),
+            *(o.data_ptr() for o in outs), kp.data_ptr(),
+            _kernel_consts(f, dev).data_ptr(), lanes, b3, _stream(dev))
+        _raise_on(err, "bmt_fold_g1")
+        launch_counts["rns_fold_window"] += 1
+    return tuple(o.reshape(shape) for o in outs)
+
+
+def rns_fold_window_g2(f, b3c: int, acc_res, q, sgn, tab_bound, cap):
+    """K2: one G2 fold window; acc_res / q are tuples of (80, 2, *batch)
+    padded residues (component axis 1); sgn (*batch) bool (the reference's
+    `rns_fold_window_pallas_g2`)."""
+    shape = acc_res[0].shape
+    lanes = int(np.prod(shape[2:]))
+    flat = []
+    for r in acc_res:
+        flat += [r[:, 0].reshape(PAD_C, lanes).contiguous(), r[:, 1].reshape(PAD_C, lanes).contiguous()]
+    qf = []
+    for r in q:
+        qf += [r[:, 0].reshape(PAD_C, lanes).contiguous(), r[:, 1].reshape(PAD_C, lanes).contiguous()]
+    sg = sgn.reshape(lanes).to(torch.int32).contiguous()
+    tab_n, cap = _tab_n(tab_bound), int(cap)
+    if _device_kind(sg) == "cpu":
+        outs = fold_window_g2_plain(f, b3c, flat, qf, sg, tab_n, cap)
+    else:
+        dev = sg.device
+        _check_tiles(flat + qf, lanes, dev)
+        ks = fold_schedule(f, b3c, tab_n, cap, True)
+        assert len(ks) == G2_NUM_K, "G2 schedule does not match the kernel"
+        kp = _kp_rows(f, ks, dev)
+        outs = tuple(torch.empty_like(flat[0]) for _ in range(6))
+        lib = _load()
+        err = lib.bmt_fold_g2(
+            *(t.data_ptr() for t in flat + qf), sg.data_ptr(),
+            *(o.data_ptr() for o in outs), kp.data_ptr(),
+            _kernel_consts(f, dev).data_ptr(), lanes, b3c, _stream(dev))
+        _raise_on(err, "bmt_fold_g2")
+        launch_counts["rns_fold_window_g2"] += 1
+    batch = shape[2:]
+    return tuple(
+        torch.stack([outs[2 * i].reshape((PAD_C,) + tuple(batch)),
+                     outs[2 * i + 1].reshape((PAD_C,) + tuple(batch))], dim=1)
+        for i in range(3)
+    )

@@ -1,0 +1,77 @@
+"""The CUDA fold kernels against their plain PyTorch versions, on the card.
+
+Imports neither jax nor the reference, so it runs on the GPU machine:
+
+    python3 -m pytest --noconftest -q tests/test_torch_cuda.py
+
+Every test here needs a CUDA card and skips without one.  Lane counts that
+are not a multiple of the kernels' 4-lane tile exercise the ragged edge.
+"""
+
+import random
+from fractions import Fraction
+
+import pytest
+import torch
+
+from bellman_mpc_tpu_torch.curves import rns_point as rpt
+from bellman_mpc_tpu_torch.ops import fold_kernels as fk
+
+F = rpt.default_rns_field()
+
+
+@pytest.fixture
+def dev():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: run on the GPU machine")
+    return torch.device("cuda", 0)
+
+
+def _tile(rng, n, dev, zero_cols=()):
+    t = fk.rns_pad_rows(F, F.encode([rng.randrange(F.p) for _ in range(n)], device=dev).res)
+    t[:, list(zero_cols)] = 0
+    return t.contiguous()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("lanes", [13, 256])
+def test_k3_matches_plain(dev, lanes):
+    rng = random.Random(lanes)
+    x, y = _tile(rng, lanes, dev), _tile(rng, lanes, dev)
+    got = fk.rns_mul_many(F, fk.rns_unpad_rows(F, x), fk.rns_unpad_rows(F, y))
+    assert torch.equal(fk.rns_pad_rows(F, got), fk.rns_mul_block_plain(F, x, y))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("lanes", [13, 256])
+def test_k1_matches_plain(dev, lanes):
+    rng = random.Random(lanes + 1)
+    acc = tuple(_tile(rng, lanes, dev) for _ in range(3))
+    q = (_tile(rng, lanes, dev, [0, 5]), _tile(rng, lanes, dev, [0, 7]))
+    sg = torch.tensor([rng.randrange(2) == 1 for _ in range(lanes)], device=dev)
+    got = fk.rns_fold_window(F, 12, acc, q, sg, Fraction(37), Fraction(fk.G1_CAP))
+    want = fk.fold_window_g1_plain(F, 12, acc, q[0], q[1], sg.to(torch.int32), 37, fk.G1_CAP)
+    assert all(torch.equal(g, w) for g, w in zip(got, want))
+    assert fk.launch_counts["rns_fold_window"] > 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("lanes", [13, 256])
+def test_k2_matches_plain(dev, lanes):
+    rng = random.Random(lanes + 2)
+    acc = tuple(torch.stack([_tile(rng, lanes, dev), _tile(rng, lanes, dev)], dim=1) for _ in range(3))
+    q = tuple(torch.stack([_tile(rng, lanes, dev, [1]), _tile(rng, lanes, dev, [1, 4])], dim=1)
+              for _ in range(2))
+    sg = torch.tensor([rng.randrange(2) == 1 for _ in range(lanes)], device=dev)
+    got = fk.rns_fold_window_g2(F, 12, acc, q, sg, Fraction(37), Fraction(fk.G2_CAP))
+    flat = lambda ts: [t[:, c].contiguous() for t in ts for c in range(2)]
+    want = fk.fold_window_g2_plain(F, 12, flat(acc), flat(q), sg.to(torch.int32), 37, fk.G2_CAP)
+    assert all(torch.equal(g, w) for g, w in zip(flat(got), want))
+
+
+@pytest.mark.cuda
+def test_wrappers_reject_bad_tiles(dev):
+    x = torch.zeros((fk.PAD_C, 8), dtype=torch.int32, device=dev)
+    sg = torch.zeros(8, dtype=torch.bool, device=dev)
+    with pytest.raises(ValueError):  # int64 tiles
+        fk.rns_fold_window(F, 12, (x.long(),) * 3, (x, x), sg, Fraction(37), Fraction(128))

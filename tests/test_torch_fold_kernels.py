@@ -1,0 +1,85 @@
+"""Fold kernels: the plain PyTorch K3/K1/K2 vs the reference's Pallas
+kernels (run in interpret mode on the CPU, as tests/test_pallas.py runs
+them), bit-exact, with (0, 0) sentinels and negative signs mixed in.  The
+CUDA kernels against the plain versions are in tests/test_torch_cuda.py."""
+
+import random
+from fractions import Fraction
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from bellman_mpc_tpu.curves import rns_point as rrp
+from bellman_mpc_tpu.ops import pallas_kernels as pk
+from bellman_mpc_tpu_torch import interop
+from bellman_mpc_tpu_torch.curves import rns_point as trp
+from bellman_mpc_tpu_torch.ops import fold_kernels as fk
+
+RF, TF = rrp.default_rns_field(), trp.default_rns_field()
+N = 16
+
+
+def _tile(rng, zero_cols=()):
+    v = np.asarray(pk.rns_pad_rows(RF, RF.encode([rng.randrange(RF.p) for _ in range(N)]).res)).copy()
+    v[:, list(zero_cols)] = 0
+    return v
+
+
+_t = interop.tensor
+
+
+def test_pad_layout():
+    x = RF.encode(list(range(1, N + 1))).res
+    padded = fk.rns_pad_rows(TF, _t(x))
+    assert np.array_equal(np.asarray(pk.rns_pad_rows(RF, x)), padded.numpy())
+    assert np.array_equal(fk.rns_unpad_rows(TF, padded).numpy(), np.asarray(x))
+
+
+def test_k3_plain_matches_pallas():
+    rng = random.Random(1)
+    a = RF.encode([rng.randrange(RF.p) for _ in range(N)]).res
+    b = RF.encode([rng.randrange(RF.p) for _ in range(N)]).res
+    want = np.asarray(pk.rns_mul_many_pallas(RF, a, b))
+    assert np.array_equal(want, fk.rns_mul_many(TF, _t(a), _t(b)).numpy())
+
+
+def test_k1_plain_matches_pallas():
+    rng = random.Random(2)
+    acc = [_tile(rng) for _ in range(3)]
+    q = [_tile(rng, [1, 5]), _tile(rng, [1, 6])]  # lane 1: the (0, 0) sentinel
+    sg = np.array([i % 3 == 0 for i in range(N)])
+    args = (Fraction(37), Fraction(128))
+    want = pk.rns_fold_window_pallas(
+        RF, 12, tuple(map(jnp.asarray, acc)), tuple(map(jnp.asarray, q)), jnp.asarray(sg), *args)
+    got = fk.rns_fold_window(TF, 12, tuple(map(_t, acc)), tuple(map(_t, q)), _t(sg), *args)
+    for w, g in zip(want, got):
+        assert np.array_equal(np.asarray(w), g.numpy())
+    assert np.array_equal(got[0][:, 1].numpy(), acc[0][:, 1])  # sentinel keeps acc
+
+
+def test_k2_plain_matches_pallas():
+    rng = random.Random(3)
+    acc = [np.stack([_tile(rng), _tile(rng)], 1) for _ in range(3)]
+    q = [np.stack([_tile(rng, [2]), _tile(rng, [2, 9])], 1) for _ in range(2)]
+    sg = np.array([i % 2 == 1 for i in range(N)])
+    args = (Fraction(37), Fraction(256))
+    want = pk.rns_fold_window_pallas_g2(
+        RF, 12, tuple(map(jnp.asarray, acc)), tuple(map(jnp.asarray, q)), jnp.asarray(sg), *args)
+    got = fk.rns_fold_window_g2(TF, 12, tuple(map(_t, acc)), tuple(map(_t, q)), _t(sg), *args)
+    for w, g in zip(want, got):
+        assert np.array_equal(np.asarray(w), g.numpy())
+
+
+@pytest.mark.parametrize("g2,count", [(False, fk.G1_NUM_K), (True, fk.G2_NUM_K)], ids=["G1", "G2"])
+def test_schedule_matches_kernel_consumption(g2, count):
+    """The host replay yields exactly as many K values as the kernel reads."""
+    ks = fk.fold_schedule(TF, 12, 37, 256 if g2 else 128, g2)
+    assert len(ks) == count and all(k >= 1 for k in ks)
+
+
+def test_wrappers_reject_other_devices():
+    x = torch.zeros((TF.C, 4), dtype=torch.int32, device="meta")
+    with pytest.raises(ValueError):
+        fk.rns_mul_many(TF, x, x)
