@@ -1,14 +1,24 @@
 from .assembly import DensityTracker, KeypairAssembly, ProvingAssignment
 from .engine import Bls12Engine
 from .generator import DETERMINISTIC_TRAPDOOR, generate_parameters, generate_random_parameters
-from .prover import DETERMINISTIC_R, DETERMINISTIC_S
+from .prover import DETERMINISTIC_R, DETERMINISTIC_S, create_proof, create_random_proof
+from .serialize import (
+    params_from_bytes,
+    params_to_bytes,
+    proof_from_bytes,
+    proof_to_bytes,
+    vk_from_bytes,
+    vk_to_bytes,
+)
 from .types import Parameters, PreparedVerifyingKey, Proof, VerifyingKey
 from .verifier import prepare_verifying_key, verify_proof
 
 __all__ = [
     "DensityTracker", "KeypairAssembly", "ProvingAssignment", "Bls12Engine",
     "DETERMINISTIC_TRAPDOOR", "generate_parameters", "generate_random_parameters",
-    "DETERMINISTIC_R", "DETERMINISTIC_S",
+    "DETERMINISTIC_R", "DETERMINISTIC_S", "create_proof", "create_random_proof",
+    "params_from_bytes", "params_to_bytes", "proof_from_bytes", "proof_to_bytes",
+    "vk_from_bytes", "vk_to_bytes",
     "Parameters", "PreparedVerifyingKey", "Proof", "VerifyingKey",
     "prepare_verifying_key", "verify_proof",
 ]

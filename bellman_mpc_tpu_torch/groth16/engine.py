@@ -1,16 +1,18 @@
 """The BLS12-381 pairing engine of the port.
 
 Counterpart of bellman_mpc_tpu/groth16/engine.py and groth16/bls12.py for
-the main path: protocol-level group elements are host affine points
-(tuples / None); the bulk fixed-base batches of setup (`batch_mul`) run as
-one device ladder (ops/msm.batch_mul_host) on the engine's `device`, and
-pairings run on the host oracle (curves/pairing_host.py) — the route the
-reference takes on the CPU (bls12.py:149-155).
+the prover paths: protocol-level group elements are host affine points
+(tuples / None); the bulk fixed-base batches of setup (`batch_mul`) and the
+sequential prover's MSMs (`msm`) run as device ladders (ops/msm.py) on the
+engine's `device`, and pairings run on the host oracle
+(curves/pairing_host.py) — the route the reference takes on the CPU
+(bls12.py:149-155).  The engine runs on the first CUDA card unless it is
+given another device; constructing it does not touch the card.
 """
 
 from __future__ import annotations
 
-from typing import List, Sequence, Tuple
+from typing import List, Optional, Sequence, Tuple
 
 import torch
 
@@ -18,7 +20,7 @@ from ..curves import pairing_host as ph
 from ..curves.device import DeviceGroup, g1_device, g2_device
 from ..fields import bls12_381 as bc
 from ..fields.tower import FP12_ONE, fp12_eq, fp12_is_one, fp12_mul
-from ..ops.msm import batch_mul_host
+from ..ops.msm import batch_mul_host, msm_host
 
 _MSM_DEVICE_THRESHOLD = 4  # below this a host loop beats kernel dispatch
 
@@ -50,6 +52,9 @@ class _BlsGroup:
     def mul(self, p, k: int):
         return self.hostg.mul(p, k)
 
+    def eq(self, p, q) -> bool:
+        return self.hostg.eq(p, q)
+
     def batch_mul(self, base, exps: Sequence[int]) -> List:
         """[base * e for e in exps] (replaces generator.rs:311-328's wNAF)."""
         if base is None:
@@ -58,13 +63,38 @@ class _BlsGroup:
             return [self.mul(base, e) for e in exps]
         return batch_mul_host(self.device_group, base, [e % bc.R for e in exps], self.device)
 
+    def msm(self, bases, scalars, density: Optional[Sequence[bool]] = None):
+        """sum_i scalars[i] * bases[j(i)] under the density contract of
+        multiexp.rs:88-157: with a density, scalar i consumes the next base
+        only where density[i] is set.  Zero scalars are skipped."""
+        dense_bases, dense_scalars = [], []
+        j = 0
+        for i, s in enumerate(scalars):
+            if density is not None and not density[i]:
+                continue
+            b = bases[j]
+            j += 1
+            s = s % bc.R
+            if s == 0:
+                continue
+            dense_bases.append(b)
+            dense_scalars.append(s)
+        if not dense_bases:
+            return None
+        if len(dense_bases) < _MSM_DEVICE_THRESHOLD:
+            acc = None
+            for b, s in zip(dense_bases, dense_scalars):
+                acc = self.add(acc, self.mul(b, s))
+            return acc
+        return msm_host(self.device_group, dense_bases, dense_scalars, self.device)
+
 
 class Bls12Engine:
     """BLS12-381: scalar field, the two source groups, host pairing."""
 
     name = "bls12_381"
 
-    def __init__(self, device="cpu"):
+    def __init__(self, device="cuda:0"):
         self.device = torch.device(device)
         self.fr_host = bc.fr_host
         self.fr = bc.fr

@@ -1,8 +1,9 @@
 """Native host runtime: C-ABI kernels loaded via ctypes.
 
-Builds the JAX package's bellman_mpc_tpu/native/bmt_native.c (read as a
-source file, never imported) into this package's build/ directory on first
-use (cc -O3 -shared) and exposes `lc_eval_abc`,
+Builds this package's copy of the JAX package's C evaluator,
+native/bmt_native.c (byte-identical to bellman_mpc_tpu/native/bmt_native.c),
+into this package's build/ directory on first use (cc -O3 -shared) and
+exposes `lc_eval_abc`,
 the sparse linear-combination evaluator used by the compiled-circuit prover
 path (groth16/compiled.py).  Falls back to pure Python transparently when no
 C toolchain is available.
@@ -19,7 +20,7 @@ from typing import List, Optional, Tuple
 import numpy as np
 
 _DIR = Path(__file__).resolve().parent
-_SRC = _DIR.parents[1] / "bellman_mpc_tpu" / "native" / "bmt_native.c"
+_SRC = _DIR / "bmt_native.c"
 _SO = _DIR.parent / "build" / "libbmt_native.so"
 
 _lib = None

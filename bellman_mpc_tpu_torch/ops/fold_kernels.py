@@ -13,6 +13,7 @@ kernels on the prover's main path:
 Each wrapper takes the plain PyTorch version ONLY for tensors on the CPU; a
 CUDA tensor goes to the hand-written kernel (csrc/fold_kernels.cu) or the
 wrapper raises.  There is no fallback and no switch around the kernels.
+The library, its build and the launch counts are in ops/kernel_lib.py.
 
 The kernels never re-derive the RNS bound bookkeeping.  The K of every
 subtraction and negation of the mixed addition (RnsVal.__sub__ / neg add
@@ -25,15 +26,8 @@ the plain versions' bit for bit.
 
 from __future__ import annotations
 
-import ctypes
 import functools
-import os
-import shutil
-import subprocess
-import sys
-import time
 from fractions import Fraction
-from pathlib import Path
 from typing import Dict, List, Tuple
 
 import numpy as np
@@ -42,6 +36,7 @@ import torch
 from ..curves import rns_point as rpt
 from ..curves.rns_point import RnsG1Ops
 from ..fields.rns import RnsVal
+from .kernel_lib import device_kind, launch_counts, load, raise_on, stream
 
 PAD_B = 40  # B channels at padded rows [0, 40) (35 real + 5 pad)
 PAD_C = 80  # B' + m_r at padded rows [40, 80) (36 real + 4 pad)
@@ -51,17 +46,6 @@ G2_CAP = 256
 # formula, in csrc/fold_kernels.cu's order); checked against fold_schedule
 G1_NUM_K = 5
 G2_NUM_K = 45
-
-# Launch counts: each wrapper adds one where it launches its CUDA kernel.
-launch_counts: Dict[str, int] = {
-    "rns_mul_many": 0, "rns_fold_window": 0, "rns_fold_window_g2": 0,
-}
-
-
-def reset_launch_counts() -> None:
-    for k in launch_counts:
-        launch_counts[k] = 0
-
 
 # ----------------------------------------------------------- padded layout
 
@@ -320,55 +304,7 @@ def _kp_rows(f, ks: Tuple[int, ...], device) -> torch.Tensor:
     return t
 
 
-# --------------------------------------------------------- the CUDA library
-
-_PKG = Path(__file__).resolve().parents[1]
-_CSRC = _PKG / "csrc"
-_BUILD = _PKG / "build"
-_SO = _BUILD / "libbmt_fold.so"
-_lib = None
-
-
-def _nvcc() -> str:
-    exe = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
-    if not Path(exe).exists():
-        raise RuntimeError("nvcc not found: the CUDA kernels need the CUDA toolkit")
-    return exe
-
-
-def build(verbose: bool = False) -> float:
-    """Compile csrc/*.cu for sm_90a into build/libbmt_fold.so (nvcc, plain C
-    entry points).  Returns the build seconds; raises with nvcc's output on
-    failure.  verbose prints ptxas's register and shared-memory report."""
-    _BUILD.mkdir(parents=True, exist_ok=True)
-    srcs = sorted(str(p) for p in _CSRC.glob("*.cu"))
-    tmp = _SO.with_name(f"{_SO.name}.{os.getpid()}.tmp")
-    cmd = [_nvcc(), "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-           "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v", "-o", str(tmp)] + srcs
-    t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stdout}\n{proc.stderr}")
-    os.replace(tmp, _SO)
-    if verbose:
-        print(proc.stderr.strip(), file=sys.stderr)
-    return time.perf_counter() - t0
-
-
-def _load():
-    global _lib
-    if _lib is None:
-        if not _SO.exists():
-            build()
-        lib = ctypes.CDLL(str(_SO))
-        P, I = ctypes.c_void_p, ctypes.c_int
-        lib.bmt_rns_mul.argtypes = [P, P, P, P, I, P]
-        lib.bmt_fold_g1.argtypes = [P] * 6 + [P] * 3 + [P, P, I, I, P]
-        lib.bmt_fold_g2.argtypes = [P] * 11 + [P] * 6 + [P, P, I, I, P]
-        for fn in (lib.bmt_rns_mul, lib.bmt_fold_g1, lib.bmt_fold_g2):
-            fn.restype = ctypes.c_int
-        _lib = lib
-    return _lib
+# ------------------------------------------------------ the kernels' constants
 
 
 def kernel_consts_np(f) -> np.ndarray:
@@ -411,21 +347,6 @@ def _check_tiles(tiles, lanes: int, device) -> None:
             raise ValueError(f"expected a ({PAD_C}, {lanes}) tile, got {tuple(t.shape)}")
 
 
-def _device_kind(t: torch.Tensor) -> str:
-    if t.device.type in ("cpu", "cuda"):
-        return t.device.type
-    raise ValueError(f"unsupported device {t.device}")
-
-
-def _stream(device) -> ctypes.c_void_p:
-    return ctypes.c_void_p(torch.cuda.current_stream(device).cuda_stream)
-
-
-def _raise_on(err: int, name: str) -> None:
-    if err != 0:
-        raise RuntimeError(f"{name}: CUDA error {err}")
-
-
 # ----------------------------------------------------------------- wrappers
 
 
@@ -436,15 +357,15 @@ def rns_mul_many(f, xs: torch.Tensor, ys: torch.Tensor) -> torch.Tensor:
     n = int(np.prod(shape[1:])) if len(shape) > 1 else 1
     xp = rns_pad_rows(f, xs.reshape(f.C, n).to(torch.int32)).contiguous()
     yp = rns_pad_rows(f, ys.reshape(f.C, n).to(torch.int32)).contiguous()
-    if _device_kind(xp) == "cpu":
+    if device_kind(xp) == "cpu":
         out = rns_mul_block_plain(f, xp, yp)
     else:
         _check_tiles((xp, yp), n, xp.device)
         out = torch.empty_like(xp)
-        lib = _load()
+        lib = load()
         err = lib.bmt_rns_mul(xp.data_ptr(), yp.data_ptr(), out.data_ptr(),
-                              _kernel_consts(f, xp.device).data_ptr(), n, _stream(xp.device))
-        _raise_on(err, "bmt_rns_mul")
+                              _kernel_consts(f, xp.device).data_ptr(), n, stream(xp.device))
+        raise_on(err, "bmt_rns_mul")
         launch_counts["rns_mul_many"] += 1
     return rns_unpad_rows(f, out).reshape(shape)
 
@@ -466,7 +387,7 @@ def rns_fold_window(f, b3: int, acc_res, q, sgn, tab_bound, cap):
     qf = [r.reshape(PAD_C, lanes).contiguous() for r in q]
     sg = sgn.reshape(lanes).to(torch.int32).contiguous()
     tab_n, cap = _tab_n(tab_bound), int(cap)
-    if _device_kind(sg) == "cpu":
+    if device_kind(sg) == "cpu":
         outs = fold_window_g1_plain(f, b3, flat, qf[0], qf[1], sg, tab_n, cap)
     else:
         dev = sg.device
@@ -475,12 +396,12 @@ def rns_fold_window(f, b3: int, acc_res, q, sgn, tab_bound, cap):
         assert len(ks) == G1_NUM_K, "G1 schedule does not match the kernel"
         kp = _kp_rows(f, ks, dev)
         outs = tuple(torch.empty_like(flat[0]) for _ in range(3))
-        lib = _load()
+        lib = load()
         err = lib.bmt_fold_g1(
             *(t.data_ptr() for t in flat + qf), sg.data_ptr(),
             *(o.data_ptr() for o in outs), kp.data_ptr(),
-            _kernel_consts(f, dev).data_ptr(), lanes, b3, _stream(dev))
-        _raise_on(err, "bmt_fold_g1")
+            _kernel_consts(f, dev).data_ptr(), lanes, b3, stream(dev))
+        raise_on(err, "bmt_fold_g1")
         launch_counts["rns_fold_window"] += 1
     return tuple(o.reshape(shape) for o in outs)
 
@@ -499,7 +420,7 @@ def rns_fold_window_g2(f, b3c: int, acc_res, q, sgn, tab_bound, cap):
         qf += [r[:, 0].reshape(PAD_C, lanes).contiguous(), r[:, 1].reshape(PAD_C, lanes).contiguous()]
     sg = sgn.reshape(lanes).to(torch.int32).contiguous()
     tab_n, cap = _tab_n(tab_bound), int(cap)
-    if _device_kind(sg) == "cpu":
+    if device_kind(sg) == "cpu":
         outs = fold_window_g2_plain(f, b3c, flat, qf, sg, tab_n, cap)
     else:
         dev = sg.device
@@ -508,12 +429,12 @@ def rns_fold_window_g2(f, b3c: int, acc_res, q, sgn, tab_bound, cap):
         assert len(ks) == G2_NUM_K, "G2 schedule does not match the kernel"
         kp = _kp_rows(f, ks, dev)
         outs = tuple(torch.empty_like(flat[0]) for _ in range(6))
-        lib = _load()
+        lib = load()
         err = lib.bmt_fold_g2(
             *(t.data_ptr() for t in flat + qf), sg.data_ptr(),
             *(o.data_ptr() for o in outs), kp.data_ptr(),
-            _kernel_consts(f, dev).data_ptr(), lanes, b3c, _stream(dev))
-        _raise_on(err, "bmt_fold_g2")
+            _kernel_consts(f, dev).data_ptr(), lanes, b3c, stream(dev))
+        raise_on(err, "bmt_fold_g2")
         launch_counts["rns_fold_window_g2"] += 1
     batch = shape[2:]
     return tuple(

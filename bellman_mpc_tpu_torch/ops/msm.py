@@ -24,6 +24,7 @@ from ..curves.device import (
     point_identity,
     scalar_mul_bits,
     scalars_to_bits,
+    tree_reduce,
 )
 
 
@@ -233,3 +234,22 @@ def batch_mul_host(group: DeviceGroup, base, exps: Sequence[int], device) -> Lis
     bits = scalars_to_bits(sc, nbits, device)
     out = scalar_mul_bits(group.ops, B, bits)
     return group.decode_points(out)[:n]
+
+
+def msm_ladder(ops, points: Point, bits: torch.Tensor) -> Point:
+    """Per-point ladders + tree reduction. bits: (nbits, N), N a power of 2."""
+    return tree_reduce(ops, scalar_mul_bits(ops, points, bits))
+
+
+def msm_host(group: DeviceGroup, bases: Sequence, scalars: Sequence[int], device):
+    """Host-facing MSM: affine host points + int scalars -> host point, as
+    one ladder over all bases on the device (padded to a power of two with
+    identities)."""
+    n = len(bases)
+    if n == 0:
+        return None
+    nbits = max(max(s.bit_length() for s in scalars), 1)
+    m = _pad_pow2(n)
+    pts = group.encode_points(list(bases) + [None] * (m - n), device)
+    bits = scalars_to_bits(list(scalars) + [0] * (m - n), nbits, device)
+    return group.decode_points(msm_ladder(group.ops, pts, bits))[0]

@@ -5,26 +5,42 @@
     python3 chip_smoke.py --kernels-only  # phases 1-3 only
 
 Phases (each raises on failure; nothing is caught):
-  1. require a CUDA card; print `nvidia-smi --query-gpu=name,power.limit`;
-  2. build the fold kernels from bellman_mpc_tpu_torch/csrc with nvcc;
+  1. require a CUDA card and the package; print
+     `nvidia-smi --query-gpu=name,power.limit`;
+  2. build every kernel from bellman_mpc_tpu_torch/csrc with nvcc (one
+     process per source, in parallel);
   3. hold each kernel bit-exact against its plain PyTorch version on the
      card: K3 on (71, 16384) residues of random field elements, K1 at 16384
      lanes and K2 at 8192 lanes on encoded curve points with both signs and
-     (0, 0) sentinels mixed in, over three chained windows;
+     (0, 0) sentinels mixed in, over three chained windows; K4 on Fr at the
+     main path's (24, 16384), on Fp at a ragged (36, 4099) and on the mock
+     field, with inputs up to 2p;
   4. setup: generate_random_parameters for MiMC-322 (constants seed 42),
      then BatchProver(msm_strategy="rns") with its padded RNS tables;
   5. prove_batch on B=16 random witnesses, launch counts checked (K1 132
-     times, K2 33 times per step), all 16 proofs verified by the port's
-     verifier;
+     times, K2 33 times, K4 never per step), all 16 proofs verified by the
+     port's verifier;
   6. timings: table build, median step of 3, proofs/s, and one fold
      window's kernel time beside its plain version's at the main path's
-     shapes (gathered from the real tables).
+     shapes (gathered from the real tables);
+  7. BMT_PALLAS=1: a second BatchProver on the same parameters routes the
+     h(x) pipeline's coset product through K4; the same 16 witnesses give
+     bit-identical proofs with K4 launched once, K1 132 and K2 33 times per
+     step; median step of 3; then the sequential create_random_proof of
+     witness 0 (K4 once) equals batch proof 0 in its 192 serialized bytes
+     and verifies;
+  8. RangeDemo (the chip gate's setup and witnesses, n = 4, B = 16):
+     setup, BatchProver(rns), 16/16 verified, proof 0 equal to the
+     sequential proof, launch counts checked.
 
-Prints the kernels' JSON line and, last, {"ok": true, "device": {...}}.
+Prints the kernels' JSON line (every kernel with its launches on the main
+path, error, times, bound and library yardstick), the card's name and power
+limit, and, last, {"ok": true, "device": {...}}.
 Imports nothing of JAX and nothing of the JAX package.
 """
 
 import json
+import os
 import random
 import statistics
 import subprocess
@@ -34,12 +50,25 @@ from fractions import Fraction
 from pathlib import Path
 
 B_PROOFS = 16
-KERNEL_SOURCE = "bellman_mpc_tpu_torch/csrc/fold_kernels.cu"
+NBITS = 255
+SOURCES = {
+    "mont_mul": "bellman_mpc_tpu_torch/csrc/mont_mul.cu",
+    "rns_mul_many": "bellman_mpc_tpu_torch/csrc/fold_kernels.cu",
+    "rns_fold_window": "bellman_mpc_tpu_torch/csrc/fold_kernels.cu",
+    "rns_fold_window_g2": "bellman_mpc_tpu_torch/csrc/fold_kernels.cu",
+}
 REPLACES = {
+    "mont_mul": "bellman_mpc_tpu/ops/pallas_kernels.py:87",
     "rns_mul_many": "bellman_mpc_tpu/ops/pallas_kernels.py:268",
     "rns_fold_window": "bellman_mpc_tpu/ops/pallas_kernels.py:470",
     "rns_fold_window_g2": "bellman_mpc_tpu/ops/pallas_kernels.py:663",
 }
+# H100 SXM device memory rate (NVIDIA data sheet) and 32-bit integer
+# instructions per clock per SM at compute capability 9.0 (CUDA C++
+# Programming Guide, arithmetic instruction throughput: add, multiply-add,
+# shift, logic and compare all 64)
+MEM_BYTES_PER_S = 3.35e12
+INT32_PER_CLOCK_PER_SM = 64
 
 
 def log(msg: str) -> None:
@@ -218,34 +247,153 @@ def time_fold_windows(bp, rng: random.Random):
     return out
 
 
+def lazy_limbs(f, n: int, rng: random.Random, device):
+    """(L, n) int32 canonical digits of values in [0, 2p); every 5th lane
+    within 2^8 of 2p, the largest value the kernels take."""
+    import torch
+
+    vals = [2 * f.p - 1 - rng.randrange(256) if i % 5 == 0 else rng.randrange(2 * f.p)
+            for i in range(n)]
+    return torch.tensor([[(v >> (11 * i)) & 2047 for v in vals] for i in range(f.L)],
+                        dtype=torch.int32, device=device)
+
+
+def check_mont_mul(device, rng: random.Random):
+    """Phase 3, K4: bit-exact against its plain version (and against
+    LimbField.mul) on Fr at the main path's (24, 16384), on Fp at a ragged
+    (36, 4099) and on the mock field; kernel and plain times at Fr."""
+    import torch
+
+    from bellman_mpc_tpu_torch.fields.bls12_381 import fp, fr
+    from bellman_mpc_tpu_torch.fields.mock import mock
+    from bellman_mpc_tpu_torch.ops.mont_kernels import mont_mul, mont_mul_block_plain
+
+    out = {}
+    for name, f, n in (("Fr", fr, B_PROOFS * 1024), ("Fp", fp, 4099), ("mock", mock, 4099)):
+        a, b = lazy_limbs(f, n, rng, device), lazy_limbs(f, n, rng, device)
+        got = mont_mul(f, a, b)
+        plain = mont_mul_block_plain(f, a, b)
+        torch.cuda.synchronize()
+        err = max(max_abs_err(got, plain), max_abs_err(got, f.mul(a, b)))
+        assert err == 0, f"K4 on {name} disagrees with its plain version: max_abs_err {err}"
+        out[name] = dict(shape=[f.L, n], max_abs_err=err)
+        if name == "Fr":
+            out[name].update(ms=cuda_time_ms(lambda: mont_mul(f, a, b), 50),
+                             plain_ms=cuda_time_ms(lambda: mont_mul_block_plain(f, a, b), 5))
+        log(f"K4 mont_mul: bit-exact at {name} ({f.L}, {n})")
+    return out
+
+
+def int32_ops_per_s() -> float:
+    """The card's peak rate of 32-bit integer instructions: SMs x 64 per
+    clock x the maximum SM clock that nvidia-smi reports."""
+    import torch
+
+    mhz = float(subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,nounits", "-i", "0"],
+        capture_output=True, text=True, check=True).stdout.strip())
+    return torch.cuda.get_device_properties(0).multi_processor_count * INT32_PER_CLOCK_PER_SM * mhz * 1e6
+
+
+def rns_mul_ops(k: int = 35) -> int:
+    """Integer instructions of one RNS Montgomery multiply per lane, counting
+    only what the algorithm cannot skip: the two base extensions' k (k + 1)
+    multiply-adds each, and three (product, Barrett high product, multiply-
+    subtract) for each of the 2k+1 channel products, the k kappa, k+1 M^-1,
+    k (M'/m')^-1 and k correction products and the 2(k+1) dot reductions."""
+    return 2 * k * (k + 1) + 3 * ((2 * k + 1) + k + (k + 1) + k + 2 * (k + 1) + k)
+
+
+def mont_mul_ops(L: int) -> int:
+    """Integer instructions of one limb Montgomery multiply per lane: L^2
+    product multiply-adds, L reduction steps of L - 1 multiply-adds plus 5,
+    4 folds of 3 (L - 1) + 1, and a 6-instruction carry step per limb."""
+    return L * L + L * (L - 1 + 5) + 4 * (3 * (L - 1) + 1) + 6 * L
+
+
+def bound(nbytes: float, ops: float, int_rate: float):
+    """(bound_ms, bound_by): the larger of the bytes over the memory rate and
+    the integer instructions over the card's integer rate."""
+    t_bytes = nbytes / MEM_BYTES_PER_S * 1e3
+    t_ops = ops / int_rate * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def kernel_bounds(int_rate: float, k3_lanes: int, fold_lanes: dict, mont_shape):
+    """bound_ms and bound_by of each kernel at the shapes it was timed at:
+    each input read once and each output written once (int32 words; the
+    80-row padded RNS tiles as the kernels take them), and the RNS multiplies'
+    (K1 11, K2 33) or the limb multiply's integer instructions."""
+    row = 80 * 4
+    r = rns_mul_ops()
+    L, n = mont_shape
+    g1, g2 = fold_lanes["rns_fold_window"], fold_lanes["rns_fold_window_g2"]
+    return {
+        "mont_mul": bound(3 * L * n * 4, mont_mul_ops(L) * n, int_rate),
+        "rns_mul_many": bound(3 * row * k3_lanes, r * k3_lanes, int_rate),
+        "rns_fold_window": bound((8 * row + 4) * g1, 11 * r * g1, int_rate),
+        "rns_fold_window_g2": bound((16 * row + 4) * g2, 33 * r * g2, int_rate),
+    }
+
+
+def windows(c: int) -> int:
+    return -(-NBITS // c) + 1
+
+
+def time_steps(bp, args, n: int = 3):
+    import torch
+
+    steps = []
+    for _ in range(n):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        bp.step(*args)
+        torch.cuda.synchronize()
+        steps.append(time.perf_counter() - t0)
+    return steps
+
+
+def counted(kl, fn):
+    """Run fn() with every launch count set to 0 just before it; returns
+    (result, the counts read just after, seconds)."""
+    import torch
+
+    kl.reset_launch_counts()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, dict(kl.launch_counts), time.perf_counter() - t0
+
+
 def main() -> int:
+    t_start = time.perf_counter()
     kernels_only = "--kernels-only" in sys.argv[1:]
     import torch
 
     if not torch.cuda.is_available():
         log("chip_smoke: no CUDA device available")
         return 1
+    sys.path.insert(0, str(Path(__file__).resolve().parent))
+    from bellman_mpc_tpu_torch import native
+    from bellman_mpc_tpu_torch.ops import kernel_lib as kl
+
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader", "-i", "0"],
         capture_output=True, text=True, check=True,
     ).stdout.strip()
     print(smi, flush=True)
-
-    sys.path.insert(0, str(Path(__file__).resolve().parent))
-    from bellman_mpc_tpu_torch import native
-    from bellman_mpc_tpu_torch.ops import fold_kernels as fk
-
     device = torch.device("cuda", 0)
     kind = torch.cuda.get_device_name(0)
     log(f"torch {torch.__version__} cuda {torch.version.cuda} on {kind}")
 
     # phase 2: build
-    build_s = fk.build(verbose=True)
-    print(f"build: {build_s:.3f} s (nvcc, sm_90a)", flush=True)
+    build_s = kl.build(verbose=True)
+    print(f"build: {build_s:.3f} s (nvcc, sm_90a, one process per source)", flush=True)
 
     # phase 3: kernel vs plain
     rng = random.Random(2024)
     checks = check_kernels(device, rng)
+    checks["mont_mul"] = check_mont_mul(device, rng)
     print("kernel checks: " + json.dumps(checks), flush=True)
     if kernels_only:
         return 0
@@ -253,14 +401,18 @@ def main() -> int:
     # phase 4: setup
     from bellman_mpc_tpu_torch.groth16 import (
         Bls12Engine,
+        create_random_proof,
         generate_random_parameters,
         prepare_verifying_key,
+        proof_to_bytes,
         verify_proof,
     )
-    from bellman_mpc_tpu_torch.models import MiMCDemo, mimc, mimc_constants
+    from bellman_mpc_tpu_torch.models import MiMCDemo, RangeDemo, mimc, mimc_constants
     from bellman_mpc_tpu_torch.parallel import BatchProver
 
-    engine = Bls12Engine(device)
+    os.environ.pop("BMT_PALLAS", None)
+    engine = Bls12Engine()
+    assert engine.device == device
     host = engine.fr_host
     constants = mimc_constants(host, seed=42)
     t0 = time.perf_counter()
@@ -270,9 +422,9 @@ def main() -> int:
     t0 = time.perf_counter()
     bp = BatchProver(engine, params, MiMCDemo(constants, 0, 0), msm_strategy="rns")
     torch.cuda.synchronize()
-    build_s = time.perf_counter() - t0
+    prover_build_s = time.perf_counter() - t0
     info = bp.table_info()
-    log(f"prover build {build_s:.3f} s; m={bp.m}, tables " + ", ".join(
+    log(f"prover build {prover_build_s:.3f} s; m={bp.m}, tables " + ", ".join(
         f"{n}: n={k} c={c} {b / 2**30:.3f} GiB" for n, k, c, b in info))
     assert all(c == 8 for _, _, c, _ in info), "window width differs from pick_table_c's 8"
 
@@ -281,16 +433,11 @@ def main() -> int:
     prng = random.Random(0)
     wit = [(prng.randrange(host.p), prng.randrange(host.p)) for _ in range(B_PROOFS)]
     circuits = [MiMCDemo(constants, xl, xr) for xl, xr in wit]
-    fk.reset_launch_counts()
-    t0 = time.perf_counter()
-    proofs = bp.prove_batch(circuits)
-    torch.cuda.synchronize()
-    prove_s = time.perf_counter() - t0
-    counts = dict(fk.launch_counts)
+    proofs, counts, prove_s = counted(kl, lambda: bp.prove_batch(circuits))
     log(f"prove_batch B={B_PROOFS}: {prove_s:.3f} s, launches {counts}")
-    W = -(-255 // 8) + 1
-    assert counts["rns_fold_window"] == 4 * W, counts
-    assert counts["rns_fold_window_g2"] == W, counts
+    W = windows(8)
+    assert counts["rns_fold_window"] == 4 * W and counts["rns_fold_window_g2"] == W, counts
+    assert counts["mont_mul"] == 0 and counts["rns_mul_many"] == 0, counts
     pvk = prepare_verifying_key(engine, params.vk)
     t0 = time.perf_counter()
     for (xl, xr), proof in zip(wit, proofs):
@@ -300,31 +447,120 @@ def main() -> int:
 
     # phase 6: timings
     args = bp.encode_circuits(circuits)
-    steps = []
-    for _ in range(3):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        bp.step(*args)
-        torch.cuda.synchronize()
-        steps.append(time.perf_counter() - t0)
+    steps = time_steps(bp, args)
     step_s = statistics.median(steps)
-    windows = time_fold_windows(bp, rng)
-    print(json.dumps({
-        "setup_s": setup_s, "prover_build_s": build_s, "prove_batch_s": prove_s,
-        "step_s": step_s, "steps_s": steps, "proofs_per_s": B_PROOFS / step_s,
-        "verify_all_s": verify_s, "B": B_PROOFS, "m": bp.m,
-        "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30,
-        "k3": checks["rns_mul_many"],
-    }), flush=True)
+    fold_times = time_fold_windows(bp, rng)
+    m = bp.m
+    del bp
+    torch.cuda.empty_cache()
+
+    # phase 7: BMT_PALLAS=1, the coset product through K4
+    os.environ["BMT_PALLAS"] = "1"
+    t0 = time.perf_counter()
+    bp_k4 = BatchProver(engine, params, MiMCDemo(constants, 0, 0), msm_strategy="rns")
+    torch.cuda.synchronize()
+    k4_build_s = time.perf_counter() - t0
+    proofs_k4, counts_k4, prove_k4_s = counted(kl, lambda: bp_k4.prove_batch(circuits))
+    log(f"BMT_PALLAS=1 prove_batch: {prove_k4_s:.3f} s, launches {counts_k4}")
+    assert counts_k4["mont_mul"] == 1, counts_k4
+    assert counts_k4["rns_fold_window"] == 4 * W and counts_k4["rns_fold_window_g2"] == W, counts_k4
+    assert proofs_k4 == proofs, "BMT_PALLAS=1 proofs differ from the default path's"
+    steps_k4 = time_steps(bp_k4, args)
+    del bp_k4, args
+    torch.cuda.empty_cache()
+    seq, counts_seq, seq_s = counted(
+        kl, lambda: create_random_proof(engine, MiMCDemo(constants, *wit[0]), params))
+    log(f"sequential proof: {seq_s:.3f} s, launches {counts_seq}")
+    assert counts_seq["mont_mul"] == 1, counts_seq
+    assert counts_seq["rns_fold_window"] == counts_seq["rns_fold_window_g2"] == 0, counts_seq
+    assert seq == proofs[0], "the sequential proof differs from batch proof 0"
+    assert proof_to_bytes(seq) == proof_to_bytes(proofs[0]) and len(proof_to_bytes(seq)) == 192
+    verify_proof(engine, pvk, seq, [mimc(host, *wit[0], constants)])
+    print(f"BMT_PALLAS=1: {B_PROOFS}/{B_PROOFS} proofs bit-identical to the default path; "
+          f"sequential proof == batch proof 0 (192 bytes), verified", flush=True)
+
+    # phase 8: RangeDemo, the chip gate's second shape (BMT_PALLAS=1 still set)
+    def range_circ(d):
+        w = 8 + d
+        return RangeDemo(a=1, b=1 + d, n=4, w=w, wArray=[(w >> i) & 1 for i in range(4)],
+                         less_or_equal=1, less=1, not_all_zeros=1)
+
+    t0 = time.perf_counter()
+    r_params = generate_random_parameters(engine, RangeDemo(
+        a=1, b=2, n=4, w=9, wArray=[0, 0, 0, 0], less_or_equal=1, less=1, not_all_zeros=1))
+    r_setup_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    bp_r = BatchProver(engine, r_params, range_circ(1), msm_strategy="rns")
+    torch.cuda.synchronize()
+    r_build_s = time.perf_counter() - t0
+    r_info = bp_r.table_info()
+    ds = [1 + (i % 7) for i in range(B_PROOFS)]
+    r_proofs, r_counts, r_prove_s = counted(kl, lambda: bp_r.prove_batch([range_circ(d) for d in ds]))
+    log(f"RangeDemo m={bp_r.m} tables {[(n, k, c) for n, k, c, _ in r_info]}: "
+        f"prove_batch {r_prove_s:.3f} s, launches {r_counts}")
+    cs = {n: c for n, _, c, _ in r_info}
+    assert r_counts["mont_mul"] == 1, r_counts
+    assert r_counts["rns_fold_window"] == sum(windows(cs[n]) for n in ("h", "l", "a", "b1")), r_counts
+    assert r_counts["rns_fold_window_g2"] == windows(cs["b2"]), r_counts
+    r_pvk = prepare_verifying_key(engine, r_params.vk)
+    for d, proof in zip(ds, r_proofs):
+        verify_proof(engine, r_pvk, proof, [1 + d])
+    r_seq, r_seq_counts, r_seq_s = counted(
+        kl, lambda: create_random_proof(engine, range_circ(ds[0]), r_params))
+    assert r_seq_counts["mont_mul"] == 1, r_seq_counts
+    assert r_seq == r_proofs[0], "RangeDemo sequential proof differs from batch proof 0"
+    assert proof_to_bytes(r_seq) == proof_to_bytes(r_proofs[0])
+    print(f"RangeDemo: verified {len(r_proofs)}/{B_PROOFS}; sequential proof == batch proof 0",
+          flush=True)
+
+    # the kernels' line
+    int_rate = int32_ops_per_s()
+    bounds = kernel_bounds(int_rate, checks["rns_mul_many"]["lanes"],
+                           {k: v["lanes"] for k, v in fold_times.items()},
+                           checks["mont_mul"]["Fr"]["shape"])
+    timed = {
+        "mont_mul": checks["mont_mul"]["Fr"], "rns_mul_many": checks["rns_mul_many"],
+        "rns_fold_window": fold_times["rns_fold_window"],
+        "rns_fold_window_g2": fold_times["rns_fold_window_g2"],
+    }
+    errs = {
+        "mont_mul": max(v["max_abs_err"] for v in checks["mont_mul"].values()),
+        "rns_mul_many": checks["rns_mul_many"]["max_abs_err"],
+        "rns_fold_window": max(checks["rns_fold_window"]["max_abs_err"],
+                               fold_times["rns_fold_window"]["max_abs_err"]),
+        "rns_fold_window_g2": max(checks["rns_fold_window_g2"]["max_abs_err"],
+                                  fold_times["rns_fold_window_g2"]["max_abs_err"]),
+    }
+    # launches on the main path: K1/K2 per default step, K4 per BMT_PALLAS=1
+    # step; K3's standalone kernel is never launched there (its multiply runs
+    # inside K1 and K2), so its count is 0
+    launches = {"mont_mul": counts_k4["mont_mul"], "rns_mul_many": counts["rns_mul_many"],
+                "rns_fold_window": counts["rns_fold_window"],
+                "rns_fold_window_g2": counts["rns_fold_window_g2"]}
     kernels = []
-    for name in ("rns_fold_window", "rns_fold_window_g2"):
+    for name in ("mont_mul", "rns_mul_many", "rns_fold_window", "rns_fold_window_g2"):
+        bound_ms, bound_by = bounds[name]
         kernels.append({
-            "name": name, "route": "cuda", "source": KERNEL_SOURCE,
-            "replaces": REPLACES[name], "launches": counts[name],
-            "max_abs_err": max(checks[name]["max_abs_err"], windows[name]["max_abs_err"]),
-            "ms": windows[name]["ms"], "plain_ms": windows[name]["plain_ms"],
+            "name": name, "route": "cuda", "source": SOURCES[name], "replaces": REPLACES[name],
+            "launches": launches[name], "max_abs_err": errs[name],
+            "ms": timed[name]["ms"], "plain_ms": timed[name]["plain_ms"],
+            "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
         })
+    total_s = time.perf_counter() - t_start
+    print(json.dumps({
+        "setup_s": setup_s, "prover_build_s": prover_build_s, "prove_batch_s": prove_s,
+        "step_s": step_s, "steps_s": steps, "proofs_per_s": B_PROOFS / step_s,
+        "pallas_prover_build_s": k4_build_s, "pallas_prove_batch_s": prove_k4_s,
+        "pallas_step_s": statistics.median(steps_k4), "pallas_steps_s": steps_k4,
+        "sequential_proof_s": seq_s, "verify_all_s": verify_s,
+        "range_setup_s": r_setup_s, "range_prover_build_s": r_build_s,
+        "range_prove_batch_s": r_prove_s, "range_sequential_proof_s": r_seq_s,
+        "range_tables": [[n, k, c] for n, k, c, _ in r_info], "B": B_PROOFS, "m": m,
+        "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30,
+        "int32_ops_per_s": int_rate, "total_s": total_s,
+    }), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
+    print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": torch.cuda.device_count()}}), flush=True)
     return 0

@@ -4,9 +4,13 @@ prove -> verify for MiMC rounds=8 (domain 32), held against the reference.
 * The port's proofs at B=2, on the reference's CRS carried over by
   `interop`, equal the reference's `create_random_proof` and pass the port's
   verifier (deterministic blinding makes proofs comparable).
+* The port's sequential `create_random_proof` equals the reference's and
+  the port's batch proof 0; its serialized proof, verifying key and
+  parameters equal the reference's bytes and read back to the same objects.
 * The port's `generate_random_parameters` equals the reference's.
 * In a subprocess with jax made unimportable, the port runs its own
-  setup -> prove -> verify.
+  setup -> prove -> verify, and a sequential RangeDemo proof on parameters
+  read from the port's serialized bytes.
 """
 
 import os
@@ -14,19 +18,25 @@ import random
 import subprocess
 import sys
 from pathlib import Path
+from types import SimpleNamespace
 
 import pytest
+import torch
 
 from bellman_mpc_tpu.groth16 import Parameters as RefParameters
 from bellman_mpc_tpu.groth16 import VerifyingKey as RefVerifyingKey
 from bellman_mpc_tpu.groth16 import create_random_proof, generate_random_parameters
+from bellman_mpc_tpu.groth16 import serialize as rser
 from bellman_mpc_tpu.groth16.bls12 import BLS12_381
 from bellman_mpc_tpu.models import MiMCDemo as RefMiMC
+from bellman_mpc_tpu.models import RangeDemo as RefRangeDemo
 from bellman_mpc_tpu.models import mimc_constants
 from bellman_mpc_tpu_torch import groth16 as tg
 from bellman_mpc_tpu_torch import interop
 from bellman_mpc_tpu_torch.models import MiMCDemo, mimc
 from bellman_mpc_tpu_torch.parallel import BatchProver
+
+torch.set_num_threads(1)  # tiny CPU tensors: threads only contend with the other test workers
 
 ROUNDS = 8
 REPO = Path(__file__).resolve().parents[1]
@@ -34,42 +44,70 @@ REPO = Path(__file__).resolve().parents[1]
 
 @pytest.fixture(scope="module")
 def setup():
+    """The reference's CRS and sequential proofs, and the port's batch and
+    sequential proofs of the same two witnesses on that CRS."""
     host = BLS12_381.fr_host
     constants = mimc_constants(host, seed=9, rounds=ROUNDS)
     ref_params = generate_random_parameters(BLS12_381, RefMiMC(constants))
     engine = tg.Bls12Engine("cpu")
-    return host, constants, ref_params, engine
+    params = interop.params_from(ref_params)
+    rng = random.Random(4)
+    wit = [(rng.randrange(host.p), rng.randrange(host.p)) for _ in range(2)]
+    ref_proofs = [create_random_proof(BLS12_381, RefMiMC(constants, xl, xr), ref_params)
+                  for xl, xr in wit]
+    bp = BatchProver(engine, params, MiMCDemo(constants, 0, 0), msm_strategy="rns")
+    return SimpleNamespace(
+        host=host, constants=constants, ref_params=ref_params, engine=engine,
+        params=params, wit=wit, ref_proofs=ref_proofs, bp=bp,
+        proofs=bp.prove_batch([MiMCDemo(constants, xl, xr) for xl, xr in wit]),
+        seq=tg.create_random_proof(engine, MiMCDemo(constants, *wit[0]), params),
+    )
 
 
 def test_crs_matches_reference(setup):
-    host, constants, ref_params, engine = setup
-    port_params = tg.generate_random_parameters(engine, MiMCDemo(constants))
-    assert port_params == interop.params_from(ref_params)
-    assert interop.params_to(port_params, RefParameters, RefVerifyingKey) == ref_params
+    port_params = tg.generate_random_parameters(setup.engine, MiMCDemo(setup.constants))
+    assert port_params == setup.params
+    assert interop.params_to(port_params, RefParameters, RefVerifyingKey) == setup.ref_params
 
 
 def test_proofs_match_reference(setup):
-    host, constants, ref_params, engine = setup
-    params = interop.params_from(ref_params)
-    bp = BatchProver(engine, params, MiMCDemo(constants, 0, 0), msm_strategy="rns")
-    assert [c for _, _, c, _ in bp.table_info()] == [4] * 5  # the CPU window width
-    rng = random.Random(4)
-    wit = [(rng.randrange(host.p), rng.randrange(host.p)) for _ in range(2)]
-    proofs = bp.prove_batch([MiMCDemo(constants, xl, xr) for xl, xr in wit])
-    pvk = tg.prepare_verifying_key(engine, params.vk)
-    for (xl, xr), proof in zip(wit, proofs):
+    host, constants, engine = setup.host, setup.constants, setup.engine
+    assert [c for _, _, c, _ in setup.bp.table_info()] == [4] * 5  # the CPU window width
+    pvk = tg.prepare_verifying_key(engine, setup.params.vk)
+    for (xl, xr), proof, seq in zip(setup.wit, setup.proofs, setup.ref_proofs):
         tg.verify_proof(engine, pvk, proof, [mimc(host, xl, xr, constants)])
-        seq = create_random_proof(BLS12_381, RefMiMC(constants, xl, xr), ref_params)
         assert interop.proof_from(seq) == proof
     with pytest.raises(tg.verifier.InvalidProof):
-        tg.verify_proof(engine, pvk, proofs[0], [mimc(host, *wit[1], constants)])
+        tg.verify_proof(engine, pvk, setup.proofs[0], [mimc(host, *setup.wit[1], constants)])
+
+
+def test_sequential_proof_matches_reference(setup):
+    assert setup.seq == interop.proof_from(setup.ref_proofs[0])
+    assert setup.seq == setup.proofs[0]
+
+
+def test_serialized_bytes_match_reference(setup):
+    proof_bytes = tg.proof_to_bytes(setup.seq)
+    assert len(proof_bytes) == 192
+    assert proof_bytes == rser.proof_to_bytes(setup.ref_proofs[0])
+    assert tg.proof_from_bytes(proof_bytes) == setup.seq
+    vk_bytes = tg.vk_to_bytes(setup.params.vk)
+    assert vk_bytes == rser.vk_to_bytes(setup.ref_params.vk)
+    assert tg.vk_from_bytes(vk_bytes) == setup.params.vk
+    params_bytes = tg.params_to_bytes(setup.params)
+    assert params_bytes == rser.params_to_bytes(setup.ref_params)
+    assert tg.params_from_bytes(params_bytes) == setup.params
+    with pytest.raises(tg.serialize.IoError):
+        tg.proof_from_bytes(proof_bytes[:-1])
 
 
 _JAX_FREE = """
 import random, sys
 sys.modules["jax"] = None
 from bellman_mpc_tpu_torch import groth16 as tg
-from bellman_mpc_tpu_torch.models import MiMCDemo, mimc, mimc_constants
+from bellman_mpc_tpu_torch.fields.mock import mock
+from bellman_mpc_tpu_torch.models import AndDemo, MiMCDemo, RangeDemo, RangeDemoExplicit, mimc, mimc_constants
+from bellman_mpc_tpu_torch.ops import kernel_lib, mont_kernels
 from bellman_mpc_tpu_torch.parallel import BatchProver
 eng = tg.Bls12Engine("cpu")
 host = eng.fr_host
@@ -82,16 +120,26 @@ proofs = bp.prove_batch([MiMCDemo(constants, a, b) for a, b in wit])
 pvk = tg.prepare_verifying_key(eng, params.vk)
 for (a, b), pr in zip(wit, proofs):
     tg.verify_proof(eng, pvk, pr, [mimc(host, a, b, constants)])
+with open(sys.argv[1], "rb") as fh:
+    r_params = tg.params_from_bytes(fh.read())
+r_proof = tg.create_random_proof(
+    eng, RangeDemo(a=1, b=3, n=4, w=10, wArray=[0, 1, 0, 1], less_or_equal=1, less=1,
+                   not_all_zeros=1), r_params)
+tg.verify_proof(eng, tg.prepare_verifying_key(eng, r_params.vk), r_proof, [3])
 assert not any(m == "jax" or m.startswith(("jax.", "bellman_mpc_tpu."))
                for m in sys.modules if sys.modules[m] is not None)
 print("JAX_FREE_OK")
 """
 
 
-def test_port_runs_without_jax():
-    env = dict(os.environ)
+def test_port_runs_without_jax(tmp_path):
+    setup = RefRangeDemo(a=1, b=2, n=4, w=9, wArray=[0, 0, 0, 0], less_or_equal=1, less=1,
+                         not_all_zeros=1)
+    r_params = interop.params_from(generate_random_parameters(BLS12_381, setup))
+    (tmp_path / "range.params").write_bytes(tg.params_to_bytes(r_params))
+    env = dict(os.environ, OMP_NUM_THREADS="1")
     env["PYTHONPATH"] = str(REPO) + os.pathsep + env.get("PYTHONPATH", "")
-    out = subprocess.run([sys.executable, "-c", _JAX_FREE], cwd=REPO, env=env,
-                         capture_output=True, text=True, timeout=600)
+    out = subprocess.run([sys.executable, "-c", _JAX_FREE, str(tmp_path / "range.params")],
+                         cwd=REPO, env=env, capture_output=True, text=True, timeout=600)
     assert out.returncode == 0, out.stderr[-3000:]
     assert "JAX_FREE_OK" in out.stdout

@@ -1,11 +1,12 @@
-"""The CUDA fold kernels against their plain PyTorch versions, on the card.
+"""The CUDA kernels against their plain PyTorch versions, on the card.
 
 Imports neither jax nor the reference, so it runs on the GPU machine:
 
     python3 -m pytest --noconftest -q tests/test_torch_cuda.py
 
 Every test here needs a CUDA card and skips without one.  Lane counts that
-are not a multiple of the kernels' 4-lane tile exercise the ragged edge.
+are not a multiple of the fold kernels' 4-lane tile or of the limb
+multiply's 256-thread block exercise the ragged edge.
 """
 
 import random
@@ -15,7 +16,13 @@ import pytest
 import torch
 
 from bellman_mpc_tpu_torch.curves import rns_point as rpt
+from bellman_mpc_tpu_torch.fields.bls12_381 import fp, fr
+from bellman_mpc_tpu_torch.fields.mock import mock
 from bellman_mpc_tpu_torch.ops import fold_kernels as fk
+from bellman_mpc_tpu_torch.ops import kernel_lib
+from bellman_mpc_tpu_torch.ops.mont_kernels import mont_mul, mont_mul_block_plain
+
+torch.set_num_threads(1)  # tiny CPU tensors: threads only contend with the other test workers
 
 F = rpt.default_rns_field()
 
@@ -75,3 +82,32 @@ def test_wrappers_reject_bad_tiles(dev):
     sg = torch.zeros(8, dtype=torch.bool, device=dev)
     with pytest.raises(ValueError):  # int64 tiles
         fk.rns_fold_window(F, 12, (x.long(),) * 3, (x, x), sg, Fraction(37), Fraction(128))
+
+
+def _limbs(f, vals, dev):
+    return torch.tensor([[(v >> (11 * i)) & 2047 for v in vals] for i in range(f.L)],
+                        dtype=torch.int32, device=dev)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("lanes", [13, 257])
+@pytest.mark.parametrize("f", [mock, fp, fr], ids=["mock", "Fp", "Fr"])
+def test_k4_matches_plain(dev, f, lanes):
+    rng = random.Random(f.L * 1000 + lanes)
+    near_2p = [2 * f.p - 1 - rng.randrange(1 << 8) for _ in range(lanes // 2)]
+    va = near_2p + [rng.randrange(2 * f.p) for _ in range(lanes - len(near_2p))]
+    vb = [rng.randrange(2 * f.p) for _ in range(lanes - 1)] + [2 * f.p - 1]
+    a, b = _limbs(f, va, dev), _limbs(f, vb, dev)
+    before = kernel_lib.launch_counts["mont_mul"]
+    got = mont_mul(f, a, b)
+    torch.cuda.synchronize()
+    assert kernel_lib.launch_counts["mont_mul"] == before + 1
+    assert torch.equal(got, mont_mul_block_plain(f, a, b))
+    assert torch.equal(got, f.mul(a, b))
+
+
+@pytest.mark.cuda
+def test_k4_rejects_strided_input(dev):
+    x = torch.zeros((fr.L, 16), dtype=torch.int32, device=dev)
+    with pytest.raises(ValueError):
+        mont_mul(fr, x[:, ::2], x[:, ::2])

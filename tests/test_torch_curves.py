@@ -14,6 +14,8 @@ from bellman_mpc_tpu.curves import host as chost
 from bellman_mpc_tpu_torch.curves import device as tdev
 from bellman_mpc_tpu_torch.curves import host as thost
 
+torch.set_num_threads(1)  # tiny CPU tensors: threads only contend with the other test workers
+
 GROUPS = {
     "G1": (rdev.g1_device, tdev.g1_device, chost.G1),
     "G2": (rdev.g2_device, tdev.g2_device, chost.G2),

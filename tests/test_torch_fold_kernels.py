@@ -17,6 +17,8 @@ from bellman_mpc_tpu_torch import interop
 from bellman_mpc_tpu_torch.curves import rns_point as trp
 from bellman_mpc_tpu_torch.ops import fold_kernels as fk
 
+torch.set_num_threads(1)  # tiny CPU tensors: threads only contend with the other test workers
+
 RF, TF = rrp.default_rns_field(), trp.default_rns_field()
 N = 16
 

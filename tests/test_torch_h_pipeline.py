@@ -15,6 +15,8 @@ from bellman_mpc_tpu_torch.fields.bls12_381 import fr as tfr
 from bellman_mpc_tpu_torch.groth16 import prover as tpv
 from bellman_mpc_tpu_torch.ops import domain as tdom
 
+torch.set_num_threads(1)  # tiny CPU tensors: threads only contend with the other test workers
+
 EXP = 4
 
 

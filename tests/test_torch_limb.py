@@ -14,6 +14,8 @@ import torch
 from bellman_mpc_tpu.fields import bls12_381 as ref
 from bellman_mpc_tpu_torch.fields import bls12_381 as port
 
+torch.set_num_threads(1)  # tiny CPU tensors: threads only contend with the other test workers
+
 FIELDS = {"fp": (ref.fp, port.fp), "fr": (ref.fr, port.fr)}
 
 

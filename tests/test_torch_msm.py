@@ -18,6 +18,8 @@ from bellman_mpc_tpu_torch.fields.bls12_381 import R
 from bellman_mpc_tpu_torch.ops import fold_kernels as fk
 from bellman_mpc_tpu_torch.ops import msm as tmsm
 
+torch.set_num_threads(1)  # tiny CPU tensors: threads only contend with the other test workers
+
 
 def test_digits_match_reference():
     rng = np.random.default_rng(5)

@@ -15,6 +15,8 @@ from bellman_mpc_tpu.fields import bls12_381 as rbc
 from bellman_mpc_tpu_torch.curves import rns_point as trp
 from bellman_mpc_tpu_torch.fields import bls12_381 as tbc
 
+torch.set_num_threads(1)  # tiny CPU tensors: threads only contend with the other test workers
+
 RF, TF = rrp.default_rns_field(), trp.default_rns_field()
 
 
