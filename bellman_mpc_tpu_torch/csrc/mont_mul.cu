@@ -2,10 +2,9 @@
 //
 // Replaces the Pallas TPU kernel K4 of bellman_mpc_tpu/ops/pallas_kernels.py:
 //   bmt_mont_mul <- _jit_mont_mul_pallas (body _mont_mul_block), which the
-//   h(x) pipeline reaches through mont_mul_pallas under BMT_PALLAS=1 for its
-//   coset pointwise product.
-// The plain PyTorch version, step for step, is mont_mul_block_plain in
-// ops/mont_kernels.py; raw output limbs equal it exactly.
+//   h(x) pipeline runs for its coset pointwise product.
+// The plain PyTorch version is LimbField.mul (fields/limb.py), which
+// ops/mont_kernels.py takes for CPU tensors; raw output limbs equal it.
 //
 // Layout: a, b, out are (L, n) int32 limb tensors, limb-major, lazy values
 // (< 2p) with canonical 11-bit digits.  The arithmetic is the reference's:
@@ -15,11 +14,11 @@
 // folds that drop the top limb's carry, then a generate/propagate carry pass.
 // Every column stays below L (2^11-1)^2 + L (2^11-1)^2 < 2^31.
 //
-// What bounds it on this card: per lane 3 L int32 words move (a, b in, out)
-// against about L^2 + L(L-1) multiply-adds plus the fold and carry passes
-// (about 1,650 integer operations per lane at L = 24), so on paper integer
-// throughput and memory take about equally long; at the prover's shapes
-// (16384 lanes) the launch itself dominates.
+// What bounds it on this card: per lane 3 L int32 words move (a, b in, out).
+// This 11-bit-limb algorithm spends about 1,650 integer operations per lane
+// at L = 24, but a Montgomery product of 8 32-bit words needs a few hundred,
+// so the function is bound by memory; at the prover's shapes (16384 lanes)
+// the launch itself dominates.
 //
 // What the design does about it: one thread per lane, so each limb row's
 // loads and stores are coalesced across a warp; the kernel is templated on

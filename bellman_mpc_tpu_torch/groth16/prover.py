@@ -10,16 +10,15 @@ Port of bellman_mpc_tpu/groth16/prover.py (bellman/src/groth16/prover.rs):
     (prover.rs:158-350): the h pipeline on one witness, six MSMs on the
     engine's groups, the delta != identity guard, proof assembly.
 
-BMT_PALLAS=1 routes the pipeline's coset pointwise product through the
-limb Montgomery kernel (ops/mont_kernels.mont_mul, the reference's Pallas
-K4); the flag is read when a pipeline is built, as in the reference, and is
-part of the pipeline cache's key.  Bit-identical either way.
+The pipeline's coset pointwise product always goes through the limb
+Montgomery kernel (ops/mont_kernels.mont_mul, the reference's Pallas K4,
+which the reference takes under BMT_PALLAS=1); its output limbs equal
+LimbField.mul's, so there is no switch around it.
 """
 
 from __future__ import annotations
 
 import functools
-import os
 from typing import List
 
 from ..fields.host import PrimeField
@@ -34,14 +33,10 @@ DETERMINISTIC_R = 27134
 DETERMINISTIC_S = 17146
 
 
+@functools.lru_cache(maxsize=None)
 def _h_pipeline(field: LimbField, host: PrimeField, exp: int):
     """The h(x) pipeline for a 2^exp domain; the returned function maps
     (L, *batch, m) Montgomery tensors a, b, c to h's coefficients."""
-    return _build_h_pipeline(field, host, exp, os.environ.get("BMT_PALLAS") == "1")
-
-
-@functools.lru_cache(maxsize=None)
-def _build_h_pipeline(field: LimbField, host: PrimeField, exp: int, use_kernel: bool):
     gen = host.generator
     geninv = host.inv(gen)
     m = 1 << exp
@@ -53,11 +48,9 @@ def _build_h_pipeline(field: LimbField, host: PrimeField, exp: int, use_kernel: 
         x = distribute_powers(field, host, x, gen)
         return ntt(field, host, x, inverse=False)  # coset_fft
 
-    def pointwise_mul(a, b):
-        if use_kernel:
-            flat = a.reshape(a.shape[0], -1).contiguous()
-            return mont_mul(field, flat, b.reshape(flat.shape).contiguous()).reshape(a.shape)
-        return field.mul(a, b)
+    def pointwise_mul(a, b):  # K4 on (L, batch * m)
+        flat = a.reshape(a.shape[0], -1).contiguous()
+        return mont_mul(field, flat, b.reshape(flat.shape).contiguous()).reshape(a.shape)
 
     def pipeline(a, b, c):
         a = coset_values(a)

@@ -3,13 +3,15 @@
 Counterpart of the TPU kernel K4 of bellman_mpc_tpu/ops/pallas_kernels.py,
 `_jit_mont_mul_pallas` (body `_mont_mul_block`, entry `mont_mul_pallas`):
 the Montgomery product a*b*R^-1 of (L, N) int32 tensors of 11-bit limbs.
-The h(x) pipeline routes its coset pointwise product through it under
-BMT_PALLAS=1 (groth16/prover.py).
+The h(x) pipeline routes its coset pointwise product through it
+(groth16/prover.py).
 
-`mont_mul` takes the plain version ONLY for tensors on the CPU; a CUDA
-tensor goes to the hand-written kernel (csrc/mont_mul.cu `bmt_mont_mul`) or
-the wrapper raises.  Raw output limbs of the two, of the reference kernel
-and of `LimbField.mul` are equal.
+The plain version is `LimbField.mul` (product columns, then `redc_cols`):
+the reference asserts the same of its kernel and its `LimbField.mul`.
+`mont_mul` takes it ONLY for tensors on the CPU; a CUDA tensor goes to the
+hand-written kernel (csrc/mont_mul.cu `bmt_mont_mul`) or the wrapper
+raises.  Raw output limbs of the kernel, of the reference kernel and of
+`LimbField.mul` are equal.
 """
 
 from __future__ import annotations
@@ -18,36 +20,11 @@ import ctypes
 
 import torch
 
-from ..fields.limb import LIMB_BITS, LIMB_MASK, LimbField, _shift_down
+from ..fields.limb import LimbField
 from .kernel_lib import device_kind, launch_counts, load, raise_on, stream
 
 # limb counts the CUDA kernel is instantiated for: mock (2), Fr (24), Fp (36)
 KERNEL_L = (2, 24, 36)
-
-
-def mont_mul_block_plain(field: LimbField, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """The kernel's arithmetic on (L, N) tensors, step for step: product
-    columns, L reduction steps, 4 flat carry folds (the top carry dropped),
-    then the sequential generate/propagate carry pass."""
-    L = field.L
-    t = field.mul_cols(a, b)
-    p_rest = field.limbs_const(field.p, t)[1:]
-    carry = torch.zeros_like(t[0])
-    for i in range(L):
-        ti = t[i] + carry
-        m = ((ti & LIMB_MASK) * field.n0inv) & LIMB_MASK
-        carry = (ti + m * field.p0) >> LIMB_BITS
-        t[i + 1 : i + L] += m * p_rest
-    r = t[L:].clone()
-    r[0] += carry
-    for _ in range(4):
-        r = (r & LIMB_MASK) + _shift_down(r >> LIMB_BITS, 0)
-    out = torch.empty_like(r)
-    c = torch.zeros_like(r[0])
-    for k in range(L):
-        out[k] = (r[k] + c) & LIMB_MASK
-        c = (r[k] > LIMB_MASK).to(r.dtype) | ((r[k] == LIMB_MASK).to(r.dtype) & c)
-    return out
 
 
 def mont_mul(field: LimbField, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -57,7 +34,7 @@ def mont_mul(field: LimbField, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor
     if a.dim() != 2 or a.shape[0] != L or a.shape != b.shape:
         raise ValueError(f"expected two ({L}, N) limb tensors, got {tuple(a.shape)} and {tuple(b.shape)}")
     if device_kind(a) == "cpu" and device_kind(b) == "cpu":
-        return mont_mul_block_plain(field, a, b)
+        return field.mul(a, b)
     for t in (a, b):
         if t.device != a.device or t.dtype != torch.int32 or not t.is_contiguous():
             raise ValueError("mont_mul takes contiguous int32 tensors on one CUDA device")

@@ -12,23 +12,19 @@ Phases (each raises on failure; nothing is caught):
   3. hold each kernel bit-exact against its plain PyTorch version on the
      card: K3 on (71, 16384) residues of random field elements, K1 at 16384
      lanes and K2 at 8192 lanes on encoded curve points with both signs and
-     (0, 0) sentinels mixed in, over three chained windows; K4 on Fr at the
-     main path's (24, 16384), on Fp at a ragged (36, 4099) and on the mock
-     field, with inputs up to 2p;
+     (0, 0) sentinels mixed in, over three chained windows; K4 against
+     LimbField.mul on Fr at the main path's (24, 16384), on Fp at a ragged
+     (36, 4099) and on the mock field, with inputs up to 2p;
   4. setup: generate_random_parameters for MiMC-322 (constants seed 42),
      then BatchProver(msm_strategy="rns") with its padded RNS tables;
-  5. prove_batch on B=16 random witnesses, launch counts checked (K1 132
-     times, K2 33 times, K4 never per step), all 16 proofs verified by the
-     port's verifier;
+  5. prove_batch on B=16 random witnesses, launch counts checked (K4 once,
+     for the h(x) pipeline's coset product, K1 132 times, K2 33 times), all
+     16 proofs verified by the port's verifier;
   6. timings: table build, median step of 3, proofs/s, and one fold
      window's kernel time beside its plain version's at the main path's
      shapes (gathered from the real tables);
-  7. BMT_PALLAS=1: a second BatchProver on the same parameters routes the
-     h(x) pipeline's coset product through K4; the same 16 witnesses give
-     bit-identical proofs with K4 launched once, K1 132 and K2 33 times per
-     step; median step of 3; then the sequential create_random_proof of
-     witness 0 (K4 once) equals batch proof 0 in its 192 serialized bytes
-     and verifies;
+  7. the sequential create_random_proof of witness 0 (K4 once, no fold
+     kernel) equals batch proof 0 in its 192 serialized bytes and verifies;
   8. RangeDemo (the chip gate's setup and witnesses, n = 4, B = 16):
      setup, BatchProver(rns), 16/16 verified, proof 0 equal to the
      sequential proof, launch counts checked.
@@ -40,7 +36,6 @@ Imports nothing of JAX and nothing of the JAX package.
 """
 
 import json
-import os
 import random
 import statistics
 import subprocess
@@ -259,27 +254,27 @@ def lazy_limbs(f, n: int, rng: random.Random, device):
 
 
 def check_mont_mul(device, rng: random.Random):
-    """Phase 3, K4: bit-exact against its plain version (and against
-    LimbField.mul) on Fr at the main path's (24, 16384), on Fp at a ragged
-    (36, 4099) and on the mock field; kernel and plain times at Fr."""
+    """Phase 3, K4: bit-exact against its plain version, LimbField.mul, on
+    Fr at the main path's (24, 16384), on Fp at a ragged (36, 4099) and on
+    the mock field; kernel and plain times at Fr."""
     import torch
 
     from bellman_mpc_tpu_torch.fields.bls12_381 import fp, fr
     from bellman_mpc_tpu_torch.fields.mock import mock
-    from bellman_mpc_tpu_torch.ops.mont_kernels import mont_mul, mont_mul_block_plain
+    from bellman_mpc_tpu_torch.ops.mont_kernels import mont_mul
 
     out = {}
     for name, f, n in (("Fr", fr, B_PROOFS * 1024), ("Fp", fp, 4099), ("mock", mock, 4099)):
         a, b = lazy_limbs(f, n, rng, device), lazy_limbs(f, n, rng, device)
         got = mont_mul(f, a, b)
-        plain = mont_mul_block_plain(f, a, b)
+        plain = f.mul(a, b)
         torch.cuda.synchronize()
-        err = max(max_abs_err(got, plain), max_abs_err(got, f.mul(a, b)))
+        err = max_abs_err(got, plain)
         assert err == 0, f"K4 on {name} disagrees with its plain version: max_abs_err {err}"
         out[name] = dict(shape=[f.L, n], max_abs_err=err)
         if name == "Fr":
             out[name].update(ms=cuda_time_ms(lambda: mont_mul(f, a, b), 50),
-                             plain_ms=cuda_time_ms(lambda: mont_mul_block_plain(f, a, b), 5))
+                             plain_ms=cuda_time_ms(lambda: f.mul(a, b), 5))
         log(f"K4 mont_mul: bit-exact at {name} ({f.L}, {n})")
     return out
 
@@ -304,11 +299,15 @@ def rns_mul_ops(k: int = 35) -> int:
     return 2 * k * (k + 1) + 3 * ((2 * k + 1) + k + (k + 1) + k + 2 * (k + 1) + k)
 
 
-def mont_mul_ops(L: int) -> int:
-    """Integer instructions of one limb Montgomery multiply per lane: L^2
-    product multiply-adds, L reduction steps of L - 1 multiply-adds plus 5,
-    4 folds of 3 (L - 1) + 1, and a 6-instruction carry step per limb."""
-    return L * L + L * (L - 1 + 5) + 4 * (3 * (L - 1) + 1) + 6 * L
+def mont_mul_ops(f) -> int:
+    """Integer instructions per lane of the least Montgomery product of two
+    L-limb inputs: pack each into s 32-bit words and unpack the result (3
+    per limb each), then CIOS Montgomery over s words: s^2 word products for
+    a*b and s^2 for m*p, each a low and a high multiply-add and two carry
+    adds, plus s products for m.  Far fewer than the 11-bit-limb
+    algorithm's, so that the bound is what the function needs."""
+    s = -(-(2 * f.p).bit_length() // 32)
+    return 9 * f.L + 8 * s * s + s
 
 
 def bound(nbytes: float, ops: float, int_rate: float):
@@ -319,17 +318,18 @@ def bound(nbytes: float, ops: float, int_rate: float):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def kernel_bounds(int_rate: float, k3_lanes: int, fold_lanes: dict, mont_shape):
+def kernel_bounds(int_rate: float, k3_lanes: int, fold_lanes: dict, mont_lanes: int):
     """bound_ms and bound_by of each kernel at the shapes it was timed at:
-    each input read once and each output written once (int32 words; the
-    80-row padded RNS tiles as the kernels take them), and the RNS multiplies'
-    (K1 11, K2 33) or the limb multiply's integer instructions."""
-    row = 80 * 4
+    each input read once and each output written once (int32 words; the 71
+    real RNS channels, not the 80-row padded tiles), and the RNS multiplies'
+    (K1 11, K2 33) or the Fr Montgomery product's integer instructions."""
+    from bellman_mpc_tpu_torch.fields.bls12_381 import fr
+
+    row = 71 * 4
     r = rns_mul_ops()
-    L, n = mont_shape
     g1, g2 = fold_lanes["rns_fold_window"], fold_lanes["rns_fold_window_g2"]
     return {
-        "mont_mul": bound(3 * L * n * 4, mont_mul_ops(L) * n, int_rate),
+        "mont_mul": bound(3 * fr.L * mont_lanes * 4, mont_mul_ops(fr) * mont_lanes, int_rate),
         "rns_mul_many": bound(3 * row * k3_lanes, r * k3_lanes, int_rate),
         "rns_fold_window": bound((8 * row + 4) * g1, 11 * r * g1, int_rate),
         "rns_fold_window_g2": bound((16 * row + 4) * g2, 33 * r * g2, int_rate),
@@ -410,7 +410,6 @@ def main() -> int:
     from bellman_mpc_tpu_torch.models import MiMCDemo, RangeDemo, mimc, mimc_constants
     from bellman_mpc_tpu_torch.parallel import BatchProver
 
-    os.environ.pop("BMT_PALLAS", None)
     engine = Bls12Engine()
     assert engine.device == device
     host = engine.fr_host
@@ -437,7 +436,7 @@ def main() -> int:
     log(f"prove_batch B={B_PROOFS}: {prove_s:.3f} s, launches {counts}")
     W = windows(8)
     assert counts["rns_fold_window"] == 4 * W and counts["rns_fold_window_g2"] == W, counts
-    assert counts["mont_mul"] == 0 and counts["rns_mul_many"] == 0, counts
+    assert counts["mont_mul"] == 1 and counts["rns_mul_many"] == 0, counts
     pvk = prepare_verifying_key(engine, params.vk)
     t0 = time.perf_counter()
     for (xl, xr), proof in zip(wit, proofs):
@@ -451,23 +450,10 @@ def main() -> int:
     step_s = statistics.median(steps)
     fold_times = time_fold_windows(bp, rng)
     m = bp.m
-    del bp
+    del bp, args
     torch.cuda.empty_cache()
 
-    # phase 7: BMT_PALLAS=1, the coset product through K4
-    os.environ["BMT_PALLAS"] = "1"
-    t0 = time.perf_counter()
-    bp_k4 = BatchProver(engine, params, MiMCDemo(constants, 0, 0), msm_strategy="rns")
-    torch.cuda.synchronize()
-    k4_build_s = time.perf_counter() - t0
-    proofs_k4, counts_k4, prove_k4_s = counted(kl, lambda: bp_k4.prove_batch(circuits))
-    log(f"BMT_PALLAS=1 prove_batch: {prove_k4_s:.3f} s, launches {counts_k4}")
-    assert counts_k4["mont_mul"] == 1, counts_k4
-    assert counts_k4["rns_fold_window"] == 4 * W and counts_k4["rns_fold_window_g2"] == W, counts_k4
-    assert proofs_k4 == proofs, "BMT_PALLAS=1 proofs differ from the default path's"
-    steps_k4 = time_steps(bp_k4, args)
-    del bp_k4, args
-    torch.cuda.empty_cache()
+    # phase 7: the sequential prover
     seq, counts_seq, seq_s = counted(
         kl, lambda: create_random_proof(engine, MiMCDemo(constants, *wit[0]), params))
     log(f"sequential proof: {seq_s:.3f} s, launches {counts_seq}")
@@ -476,10 +462,9 @@ def main() -> int:
     assert seq == proofs[0], "the sequential proof differs from batch proof 0"
     assert proof_to_bytes(seq) == proof_to_bytes(proofs[0]) and len(proof_to_bytes(seq)) == 192
     verify_proof(engine, pvk, seq, [mimc(host, *wit[0], constants)])
-    print(f"BMT_PALLAS=1: {B_PROOFS}/{B_PROOFS} proofs bit-identical to the default path; "
-          f"sequential proof == batch proof 0 (192 bytes), verified", flush=True)
+    print("sequential proof == batch proof 0 (192 bytes), verified", flush=True)
 
-    # phase 8: RangeDemo, the chip gate's second shape (BMT_PALLAS=1 still set)
+    # phase 8: RangeDemo, the chip gate's second shape
     def range_circ(d):
         w = 8 + d
         return RangeDemo(a=1, b=1 + d, n=4, w=w, wArray=[(w >> i) & 1 for i in range(4)],
@@ -517,7 +502,7 @@ def main() -> int:
     int_rate = int32_ops_per_s()
     bounds = kernel_bounds(int_rate, checks["rns_mul_many"]["lanes"],
                            {k: v["lanes"] for k, v in fold_times.items()},
-                           checks["mont_mul"]["Fr"]["shape"])
+                           checks["mont_mul"]["Fr"]["shape"][1])
     timed = {
         "mont_mul": checks["mont_mul"]["Fr"], "rns_mul_many": checks["rns_mul_many"],
         "rns_fold_window": fold_times["rns_fold_window"],
@@ -531,12 +516,9 @@ def main() -> int:
         "rns_fold_window_g2": max(checks["rns_fold_window_g2"]["max_abs_err"],
                                   fold_times["rns_fold_window_g2"]["max_abs_err"]),
     }
-    # launches on the main path: K1/K2 per default step, K4 per BMT_PALLAS=1
-    # step; K3's standalone kernel is never launched there (its multiply runs
-    # inside K1 and K2), so its count is 0
-    launches = {"mont_mul": counts_k4["mont_mul"], "rns_mul_many": counts["rns_mul_many"],
-                "rns_fold_window": counts["rns_fold_window"],
-                "rns_fold_window_g2": counts["rns_fold_window_g2"]}
+    # launches in one B = 16 step of the main path; K3's standalone kernel is
+    # never launched there (its multiply runs inside K1 and K2), so its count is 0
+    launches = {k: counts[k] for k in SOURCES}
     kernels = []
     for name in ("mont_mul", "rns_mul_many", "rns_fold_window", "rns_fold_window_g2"):
         bound_ms, bound_by = bounds[name]
@@ -550,8 +532,6 @@ def main() -> int:
     print(json.dumps({
         "setup_s": setup_s, "prover_build_s": prover_build_s, "prove_batch_s": prove_s,
         "step_s": step_s, "steps_s": steps, "proofs_per_s": B_PROOFS / step_s,
-        "pallas_prover_build_s": k4_build_s, "pallas_prove_batch_s": prove_k4_s,
-        "pallas_step_s": statistics.median(steps_k4), "pallas_steps_s": steps_k4,
         "sequential_proof_s": seq_s, "verify_all_s": verify_s,
         "range_setup_s": r_setup_s, "range_prover_build_s": r_build_s,
         "range_prove_batch_s": r_prove_s, "range_sequential_proof_s": r_seq_s,

@@ -1,11 +1,12 @@
 """The port's limb Montgomery multiply (K4) and its h(x) pipeline route,
 held against the reference on the same seeded inputs (raw limbs, tolerance 0).
 
-* `mont_mul_block_plain` == the reference's `mont_mul_pallas` in interpret
-  mode (with a block that splits the lanes) == the port's `LimbField.mul`,
-  on mock, Fp and Fr, with inputs up to 2p.
-* The port's h(x) pipeline with BMT_PALLAS=1 == the reference's with
-  BMT_PALLAS=1 at exp=4; the flag is part of the port's pipeline cache key.
+* The kernel's plain version, the port's `LimbField.mul`, == the
+  reference's `mont_mul_pallas` in interpret mode (with a block that splits
+  the lanes) == the CPU path of the port's wrapper `mont_mul`, on mock, Fp
+  and Fr, with inputs up to 2p.
+* The port's h(x) pipeline, whose coset product goes through `mont_mul`,
+  == the reference's with BMT_PALLAS=1 (its K4 route) at exp=4.
 * The kernel library rebuilds when a source is newer than it; the port's
   native C source is the reference's byte for byte; the engine defaults to
   the card.
@@ -31,7 +32,7 @@ from bellman_mpc_tpu_torch.fields.mock import mock as tmock
 from bellman_mpc_tpu_torch.groth16 import Bls12Engine
 from bellman_mpc_tpu_torch.groth16 import prover as tpv
 from bellman_mpc_tpu_torch.ops import kernel_lib
-from bellman_mpc_tpu_torch.ops.mont_kernels import mont_mul, mont_mul_block_plain
+from bellman_mpc_tpu_torch.ops.mont_kernels import mont_mul
 
 torch.set_num_threads(1)  # tiny CPU tensors: threads only contend with the other test workers
 
@@ -50,9 +51,8 @@ def test_plain_matches_reference_kernel(ref, port):
     rng = random.Random(port.L)
     a, b = _lazy_limbs(rng, port, 256), _lazy_limbs(rng, port, 256)
     want = np.asarray(mont_mul_pallas(ref, a, b, block=128))  # two blocks, interpret mode
-    got = mont_mul_block_plain(port, torch.from_numpy(a), torch.from_numpy(b))
+    got = port.mul(torch.from_numpy(a), torch.from_numpy(b))
     assert np.array_equal(want, got.numpy())
-    assert torch.equal(got, port.mul(torch.from_numpy(a), torch.from_numpy(b)))
     assert torch.equal(got, mont_mul(port, torch.from_numpy(a), torch.from_numpy(b)))
 
 
@@ -74,12 +74,10 @@ def test_h_pipeline_kernel_route_matches_reference(monkeypatch):
         want = np.asarray(rpv._h_pipeline(rfr, fr_host, exp)(*(rfr.encode(c) for c in coeffs)))
     finally:
         rpv._h_pipeline.cache_clear()  # do not leak the flagged reference pipeline
-    pipe = tpv._h_pipeline(tfr, fr_host, exp)
-    got = pipe(*(tfr.encode(c) for c in coeffs))
+    before = kernel_lib.launch_counts["mont_mul"]
+    got = tpv._h_pipeline(tfr, fr_host, exp)(*(tfr.encode(c) for c in coeffs))
     assert np.array_equal(want, got.numpy())
-    monkeypatch.delenv("BMT_PALLAS")
-    assert tpv._h_pipeline(tfr, fr_host, exp) is not pipe  # the flag keys the cache
-    assert torch.equal(tpv._h_pipeline(tfr, fr_host, exp)(*(tfr.encode(c) for c in coeffs)), got)
+    assert kernel_lib.launch_counts["mont_mul"] == before  # CPU tensors launch nothing
 
 
 def test_kernel_library_rebuilds_when_a_source_is_newer(tmp_path, monkeypatch):
