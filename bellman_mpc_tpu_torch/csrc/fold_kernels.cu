@@ -2,33 +2,64 @@
 //
 // Replaces the Pallas TPU kernels of bellman_mpc_tpu/ops/pallas_kernels.py:
 //   bmt_rns_mul  (K3) <- _jit_rns_mul_pallas; its body _rns_mul_block is
-//                        rns_mul() below, the inner multiply of K1 and K2
+//                        TcCtx::mul_many below, the inner multiply of K1
+//                        (the standalone kernel batches 6 lane tiles)
 //   bmt_fold_g1  (K1) <- _jit_mixed_add_pallas   (one G1 fold window)
 //   bmt_fold_g2  (K2) <- _jit_mixed_add_pallas_g2 (one G2 fold window)
 // The plain PyTorch versions sit beside the wrappers in ops/fold_kernels.py.
 //
-// What bounds it on this card: a fold window is a long DEPENDENT chain of
-// 11 RNS Montgomery multiplies (33 Fp products for G2), each with two
-// cross-channel base extensions (35-term dot products over 71 channels).
-// The essential HBM traffic is small (accumulator in/out plus the gathered
-// table points: 5 x 80 x lanes int32 for G1), so the kernel is bound by
-// integer multiply-add work and by the block barriers between extension
-// stages, not by memory, provided no intermediate leaves the chip.
+// Two RNS multiplies live here for now.  TcCtx::mul_many (K1, K3) is the
+// Hopper design described below.  Ctx::mul (K2 only) is the first design:
+// 4 lanes per block, each base-extension target thread running its 35-term
+// dot product from shared memory in uint32.  K2 moves onto TcCtx next, and
+// Ctx goes with it.
 //
-// What the design does about it: one block covers TL lanes with the 80
-// padded channel rows across threads (thread (x, r) owns lane x, row r).
-// Every RnsVal intermediate is ONE register per thread; channelwise work
-// (products, K*p adds, scales) is per-thread and the reduction mod m is an
-// exact 32-bit Barrett step (__umulhi with floor(2^32/m), one fixup).  Only
-// the base extensions cross threads: sources go to shared memory, each
-// target thread runs its 35-term dot in exact uint32 (sum < 35*4095^2 <
-// 2^30), three barriers per multiply.  Nothing but the final coordinates is
-// written to global memory.  The K of every sub/neg is NOT derived here:
-// the host replays the reference bookkeeping (ops/fold_kernels.py
-// fold_schedule) and passes the K*p residues as a table consumed in call
-// order, so the residues equal the plain versions' bit for bit.
-// Not done yet (later work): int8 mma for the extensions, the table gather
-// inside the kernel, persistent blocks, CUDA graphs over the window loop.
+// What bounds K1: a fold window is a dependent chain of 11 RNS Montgomery
+// multiplies, each with two cross-channel base extensions (36 x 35 dot
+// products per lane).  Its essential HBM traffic is small (accumulator
+// in/out plus the gathered table points, 8 x 71 int32 per lane), so K1 is
+// bound by latency: the extension dot products and the block barriers
+// between the stages of each multiply.  In the first design the dots ran
+// as 35 shared-memory load pairs per target thread, on 36 of 80 rows, and
+// every 4-lane block reloaded the 2 x 1260-word W tables.
+//
+// What TcCtx does about it:
+//   * The extensions run on the FP64 tensor cores: each is a (40 targets x
+//     36 sources) x (36 x 8 lanes) product, 5 warp tiles of 9 mma.m8n8k4
+//     f64 steps.  Residues, W entries and every partial sum are integers
+//     below 35 * 4095^2 < 2^30 < 2^53, so every product and sum is exact in
+//     double and any summation order gives the same value; no operand split
+//     and no recombination are needed.
+//   * A block covers 8 lanes x 80 padded rows (640 threads, 20 warps).
+//     Thread (x, r) owns lane x, row r, and every RnsVal intermediate is
+//     one register per thread; channelwise work (products, K*p adds,
+//     scales) is per thread, with the exact 32-bit Barrett reduction.
+//   * The independent products of a mixed addition (5, then 6) run as one
+//     batch: their 25 or 30 extension tiles spread over the 20 warps, and
+//     the batch shares three block barriers (6 per window, not 33).
+//   * The warp that computes an extension tile also finishes its 8 targets
+//     x 8 lanes in registers (reduction, r', xi2, the Shenoy-Kumaresan
+//     alpha on the m_r target), so nothing else waits on a barrier for it.
+//   * Blocks are persistent: a grid of one wave (the occupancy API's blocks
+//     per SM x SMs) loops over 8-lane tiles, and each block loads the W
+//     tables, already in A-fragment order (ops/fold_kernels.py
+//     ext_fragments_np), into shared memory once.
+// What bounds it now (scripts/probe_torch_k1_parts.py, PERF.md): not the
+// tensor cores (double FMAs in place of the mma steps change the time by a
+// few percent) but the integer work and latency of the channelwise stages
+// and of the extension epilogues, with 5-10 of the 20 warps taking a
+// second extension tile in each batch while the rest wait at the barrier.
+// The K of every sub/neg is NOT derived here: the host replays the
+// reference bookkeeping (ops/fold_kernels.py fold_schedule) and passes the
+// K*p residues as a table consumed in call order, so the residues equal the
+// plain versions' bit for bit.  The identity sentinel is read before the
+// sign flip; lanes past the ragged edge compute on zeros and store nothing.
+//
+// Left for later: fewer integer instructions per lane (the 9 pad rows
+// still run the channelwise ops; FP32 for the small reductions), warp
+// specialisation, the larger f64 mma shapes of sm_90, the int8 tensor
+// cores (6-bit split on mma.sync or wgmma) should the extensions become the
+// limit, and CUDA graphs over the window loop.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -165,10 +196,211 @@ __device__ __forceinline__ void init_ctx(Ctx& c, const Consts* K, const int* kp,
   }
 }
 
+// -------------------------------------- the tensor-core multiply (K1, K3)
+constexpr int TC_LANES = 8;                // lanes per block
+constexpr int TC_THREADS = TC_LANES * PC;  // 640: warp w holds rows 4w..4w+3
+constexpr int TC_WARPS = TC_THREADS / 32;
+constexpr int EXT_T = 40;                  // extension targets: 36 padded to 5 tiles of 8
+constexpr int EXT_S = 36;                  // extension sources: 35 padded to 9 k-steps of 4
+constexpr int EXT_TILES = EXT_T / 8;
+constexpr int EXT_KSTEPS = EXT_S / 4;
+constexpr int FRAG = 32;                   // an A fragment: one double per lane
+constexpr int W_FRAGS = EXT_TILES * EXT_KSTEPS * FRAG;
+constexpr int NMAX = 6;                    // products per batched multiply (G1: 5, then 6)
+
+// Shared memory of a block (dynamic, 74916 bytes: two blocks fit an SM).
+// Index j is the product of a batch.
+struct TcSmem {
+  double W[2][W_FRAGS];                 // W1, W2 in A-fragment order [tile][k-step][lane]
+  double xi[NMAX][TC_LANES][EXT_S];     // ext1 sources [lane][B row]; row 35 holds 0
+  double xi2[NMAX][TC_LANES][EXT_S];    // ext2 sources [lane][Hi-local row]; m_r holds 0
+  uint32_t t[NMAX][EXT_T][TC_LANES];    // the Hi rows' products a b, unreduced
+  uint32_t res[NMAX][EXT_T][TC_LANES];  // r' on the Hi rows
+  uint32_t ext[NMAX][EXT_T][TC_LANES];  // ext2 on the B rows
+  uint32_t alpha[NMAX][TC_LANES];
+  int flag[TC_LANES];
+  uint32_t m1[EXT_T], mu1[EXT_T], minv1[EXT_T], ifac21[EXT_T];  // ext1 targets (Hi rows)
+  uint32_t m2[EXT_T], mu2[EXT_T];  // ext2 targets: B rows 0..34, m_r at 35
+  uint32_t mpinv_mr;
+};
+
+__device__ __forceinline__ uint32_t mod_by(uint32_t t, uint32_t m, uint32_t mu) {
+  // exact for every uint32 t: q is floor(t/m) or one less
+  const uint32_t q = __umulhi(t, mu);
+  const uint32_t v = t - q * m;
+  return v >= m ? v - m : v;
+}
+
+// C (8 x 8) += A (8 x 4) B (4 x 8) in double on the tensor cores; the whole
+// warp calls it.  Fragments (PTX ISA, mma.m8n8k4 .f64): a = A[l/4][l%4],
+// b = B[l%4][l/4], c_j = C[l/4][2 (l%4) + j] for lane l.
+__device__ __forceinline__ void dmma(double& c0, double& c1, double a, double b) {
+  asm("mma.sync.aligned.m8n8k4.row.col.f64.f64.f64.f64 {%0, %1}, {%2}, {%3}, {%0, %1};"
+      : "+d"(c0), "+d"(c1)
+      : "d"(a), "d"(b));
+}
+
+// One 8-target tile of an extension: c_j = sum_i W[8 tile + l/4][i] *
+// src[2 (l%4) + j][i].  Every partial sum is an integer below 2^30, exact
+// in double, so the two accumulation chains may be added in any order.
+__device__ __forceinline__ void ext_tile(const double* W, const double (*src)[EXT_S], int tile,
+                                         int l, double& c0, double& c1) {
+  const double* w = W + tile * EXT_KSTEPS * FRAG + l;
+  const double* b = src[l >> 2] + (l & 3);
+  double e0 = 0.0, e1 = 0.0, o0 = 0.0, o1 = 0.0;
+#pragma unroll
+  for (int k = 0; k < EXT_KSTEPS; ++k) {
+    if (k & 1)
+      dmma(o0, o1, w[k * FRAG], b[4 * k]);
+    else
+      dmma(e0, e1, w[k * FRAG], b[4 * k]);
+  }
+  c0 = e0 + o0;
+  c1 = e1 + o1;
+}
+
+// Per-thread context of the tensor-core multiply: this thread's row
+// constants, its warp and lane, and the K*p schedule.
+struct TcCtx {
+  int r, x, warp, lane;
+  uint32_t m, mu, kappa, mpmod;
+  const int* kp;  // (num_K, 80) K*p residues, consumed in call order
+  int kidx;
+  TcSmem* s;
+
+  __device__ __forceinline__ uint32_t mod(uint32_t t) const { return mod_by(t, m, mu); }
+  __device__ __forceinline__ uint32_t add(uint32_t a, uint32_t b) const {
+    uint32_t v = a + b;
+    return v >= m ? v - m : v;
+  }
+  __device__ __forceinline__ uint32_t next_kp() {
+    return (uint32_t)__ldg(kp + (kidx++) * PC + r);
+  }
+  // RnsVal.__sub__: a - b + K*p, canonical
+  __device__ __forceinline__ uint32_t sub(uint32_t a, uint32_t b) {
+    int v = (int)a - (int)b + (int)next_kp();
+    if (v >= (int)m) v -= (int)m;
+    if (v < 0) v += (int)m;
+    return (uint32_t)v;
+  }
+  // RnsVal.neg: K*p - a, canonical
+  __device__ __forceinline__ uint32_t neg(uint32_t a) {
+    int v = (int)next_kp() - (int)a;
+    if (v >= (int)m) v -= (int)m;
+    if (v < 0) v += (int)m;
+    return (uint32_t)v;
+  }
+  __device__ __forceinline__ uint32_t scale(uint32_t a, uint32_t k) const {
+    return mod(a * k);  // a, k < 2^12
+  }
+
+  // Extension B -> B' + m_r of product j on target tile w, then r' = (t +
+  // q^p) M^-1 and xi2 = r' (M'/m'_j)^-1 for its 8 targets x 8 lanes.  The
+  // Hi rows left the unreduced products a b (< 2^24) in s->t, so t + q^p
+  // is one reduction of a sum below 2^24 + 2^30.
+  __device__ __forceinline__ void ext1_tile(int j, int w) {
+    double c0, c1;
+    ext_tile(s->W[0], s->xi[j], w, lane, c0, c1);
+    const int tg = w * 8 + (lane >> 2), x0 = 2 * (lane & 3);
+    if (tg >= NT) return;
+    const uint32_t mt = s->m1[tg], mut = s->mu1[tg], minv = s->minv1[tg], if2 = s->ifac21[tg];
+    const uint2 ab = *reinterpret_cast<const uint2*>(&s->t[j][tg][x0]);
+    const uint32_t sv0 = mod_by(ab.x + __double2uint_rz(c0), mt, mut);
+    const uint32_t sv1 = mod_by(ab.y + __double2uint_rz(c1), mt, mut);
+    const uint32_t r0 = mod_by(sv0 * minv, mt, mut), r1 = mod_by(sv1 * minv, mt, mut);
+    *reinterpret_cast<uint2*>(&s->res[j][tg][x0]) = make_uint2(r0, r1);
+    s->xi2[j][x0][tg] = (double)mod_by(r0 * if2, mt, mut);  // m_r: if2 = 0
+    s->xi2[j][x0 + 1][tg] = (double)mod_by(r1 * if2, mt, mut);
+  }
+
+  // Exact extension B' -> B + m_r of product j on target tile w; on the m_r
+  // target the Shenoy-Kumaresan count alpha' = (ext_mr - r'_mr) M'^-1 mod m_r.
+  __device__ __forceinline__ void ext2_tile(int j, int w) {
+    double c0, c1;
+    ext_tile(s->W[1], s->xi2[j], w, lane, c0, c1);
+    const int tg = w * 8 + (lane >> 2), x0 = 2 * (lane & 3);
+    if (tg >= NT) return;
+    const uint32_t mt = s->m2[tg], mut = s->mu2[tg];
+    const uint32_t e0 = mod_by(__double2uint_rz(c0), mt, mut);
+    const uint32_t e1 = mod_by(__double2uint_rz(c1), mt, mut);
+    if (tg < KB) {
+      *reinterpret_cast<uint2*>(&s->ext[j][tg][x0]) = make_uint2(e0, e1);
+      return;
+    }
+    const uint2 rr = *reinterpret_cast<const uint2*>(&s->res[j][KB][x0]);
+    int d0 = (int)e0 - (int)rr.x, d1 = (int)e1 - (int)rr.y;
+    if (d0 < 0) d0 += (int)mt;
+    if (d1 < 0) d1 += (int)mt;
+    s->alpha[j][x0] = mod_by((uint32_t)d0 * s->mpinv_mr, mt, mut);
+    s->alpha[j][x0 + 1] = mod_by((uint32_t)d1 * s->mpinv_mr, mt, mut);
+  }
+
+  // N independent RNS Montgomery multiplies out[j] = a[j] b[j] (the
+  // reference's _rns_mul_block for this thread's channel), batched so that
+  // their N x 5 extension tiles spread over the 20 warps and the batch
+  // shares three block barriers.  Every thread of the block calls it
+  // together.
+  template <int N>
+  __device__ __forceinline__ void mul_many(const uint32_t* a, const uint32_t* b, uint32_t* out) {
+    static_assert(N <= NMAX, "batch larger than the shared buffers");
+#pragma unroll
+    for (int j = 0; j < N; ++j) {
+      const uint32_t ab = a[j] * b[j];  // < 2^24
+      if (r < EXT_S) {  // B rows; pad row 35 has kappa 0
+        s->xi[j][x][r] = (double)mod(mod(ab) * kappa);
+      } else if (r >= PB && r <= ROW_MR) {
+        s->t[j][r - PB][x] = ab;
+      }
+    }
+    __syncthreads();
+    for (int i = warp; i < N * EXT_TILES; i += TC_WARPS) ext1_tile(i / EXT_TILES, i % EXT_TILES);
+    __syncthreads();
+    for (int i = warp; i < N * EXT_TILES; i += TC_WARPS) ext2_tile(i / EXT_TILES, i % EXT_TILES);
+    __syncthreads();
+#pragma unroll
+    for (int j = 0; j < N; ++j) {
+      if (r < KB) {
+        const uint32_t corr = mod(s->alpha[j][x] * mpmod);
+        const int v = (int)s->ext[j][r][x] - (int)corr;
+        out[j] = (uint32_t)(v < 0 ? v + (int)m : v);
+      } else {
+        out[j] = r >= PB && r <= ROW_MR ? s->res[j][r - PB][x] : 0u;  // pad rows stay 0
+      }
+    }
+  }
+};
+
+__device__ __forceinline__ void init_tc(TcCtx& c, const Consts* K, const double* wf,
+                                        const int* kp, TcSmem* s) {
+  c.x = threadIdx.x;
+  c.r = threadIdx.y;
+  const int tid = c.r * TC_LANES + c.x;
+  c.warp = tid >> 5;
+  c.lane = tid & 31;
+  c.m = K->m[c.r];
+  c.mu = K->mu[c.r];
+  c.kappa = K->kappa[c.r];
+  c.mpmod = K->mpmod[c.r];
+  c.kp = kp;
+  c.kidx = 0;
+  c.s = s;
+  for (int i = tid; i < 2 * W_FRAGS; i += TC_THREADS) (&s->W[0][0])[i] = wf[i];
+  if (tid < EXT_T) {
+    s->m1[tid] = K->m[PB + tid];
+    s->mu1[tid] = K->mu[PB + tid];
+    s->minv1[tid] = K->minv[PB + tid];
+    s->ifac21[tid] = K->ifac2[PB + tid];
+    const int row2 = tid == KB ? ROW_MR : tid;
+    s->m2[tid] = K->m[row2];
+    s->mu2[tid] = K->mu[row2];
+  }
+  if (tid == 0) s->mpinv_mr = K->mpinv_mr;
+}
+
 // ---------------------------------------------------------------- Fp ops
 struct G1Ops {
   using V = uint32_t;
-  Ctx& c;
+  TcCtx& c;
   uint32_t b3;
   __device__ V add(V a, V b) { return c.add(a, b); }
   __device__ V sub(V a, V b) { return c.sub(a, b); }
@@ -177,8 +409,7 @@ struct G1Ops {
   __device__ V scale3(V a) { return c.scale(a, 3); }
   template <int N>
   __device__ void mul_many(const V* a, const V* b, V* out) {
-#pragma unroll
-    for (int i = 0; i < N; ++i) out[i] = c.mul(a[i], b[i]);
+    c.template mul_many<N>(a, b, out);
   }
 };
 
@@ -268,53 +499,80 @@ __device__ __forceinline__ bool lane_is_sentinel(Ctx& c, bool nonzero) {
   return c.s->flag[c.x] == 0;
 }
 
-__global__ void __launch_bounds__(THREADS) rns_mul_kernel(const int* __restrict__ xs,
-                                                          const int* __restrict__ ys,
-                                                          int* __restrict__ out,
-                                                          const Consts* __restrict__ K,
-                                                          int lanes) {
-  __shared__ Smem s;
-  Ctx c;
-  init_ctx(c, K, nullptr, &s);
+__device__ __forceinline__ bool lane_is_sentinel(TcCtx& c, bool nonzero) {
+  if (c.r == 0) c.s->flag[c.x] = 0;
   __syncthreads();
-  const int lane = blockIdx.x * TL + c.x;
-  const bool valid = lane < lanes;
-  const size_t idx = (size_t)c.r * lanes + lane;
-  const uint32_t a = valid ? (uint32_t)xs[idx] : 0u;
-  const uint32_t b = valid ? (uint32_t)ys[idx] : 0u;
-  const uint32_t v = c.mul(a, b);
-  if (valid) out[idx] = (int)v;
+  if (c.r < KB && nonzero) c.s->flag[c.x] = 1;
+  __syncthreads();
+  return c.s->flag[c.x] == 0;
 }
 
-__global__ void __launch_bounds__(THREADS) fold_g1_kernel(
+// K3 and K1 are persistent: blockIdx.x walks the work units (K1: one
+// 8-lane tile; K3: NMAX consecutive tiles, one batched multiply) with
+// stride gridDim.x.  Every thread of a block takes the same units, so the
+// barriers stay uniform.
+extern __shared__ __align__(16) unsigned char tc_smem[];
+
+__global__ void __launch_bounds__(TC_THREADS, 2) rns_mul_kernel(
+    const int* __restrict__ xs, const int* __restrict__ ys, int* __restrict__ out,
+    const Consts* __restrict__ K, const double* __restrict__ wf, int lanes) {
+  TcSmem& s = *reinterpret_cast<TcSmem*>(tc_smem);
+  TcCtx c;
+  init_tc(c, K, wf, nullptr, &s);
+  __syncthreads();
+  const int units = (lanes + NMAX * TC_LANES - 1) / (NMAX * TC_LANES);
+  for (int u = blockIdx.x; u < units; u += gridDim.x) {
+    uint32_t a[NMAX], b[NMAX], v[NMAX];
+#pragma unroll
+    for (int j = 0; j < NMAX; ++j) {
+      const int lane = (u * NMAX + j) * TC_LANES + c.x;
+      const size_t idx = (size_t)c.r * lanes + lane;
+      a[j] = lane < lanes ? (uint32_t)xs[idx] : 0u;
+      b[j] = lane < lanes ? (uint32_t)ys[idx] : 0u;
+    }
+    c.mul_many<NMAX>(a, b, v);
+#pragma unroll
+    for (int j = 0; j < NMAX; ++j) {
+      const int lane = (u * NMAX + j) * TC_LANES + c.x;
+      if (lane < lanes) out[(size_t)c.r * lanes + lane] = (int)v[j];
+    }
+  }
+}
+
+__global__ void __launch_bounds__(TC_THREADS, 2) fold_g1_kernel(
     const int* __restrict__ ax, const int* __restrict__ ay, const int* __restrict__ az,
     const int* __restrict__ qx, const int* __restrict__ qy, const int* __restrict__ sg,
     int* __restrict__ ox, int* __restrict__ oy, int* __restrict__ oz,
-    const int* __restrict__ kp, const Consts* __restrict__ K, int lanes, int b3) {
-  __shared__ Smem s;
-  Ctx c;
-  init_ctx(c, K, kp, &s);
-  const int lane = blockIdx.x * TL + c.x;
-  const bool valid = lane < lanes;
-  const size_t idx = (size_t)c.r * lanes + lane;
-  const uint32_t X1 = valid ? (uint32_t)ax[idx] : 0u;
-  const uint32_t Y1 = valid ? (uint32_t)ay[idx] : 0u;
-  const uint32_t Z1 = valid ? (uint32_t)az[idx] : 0u;
-  const uint32_t X2 = valid ? (uint32_t)qx[idx] : 0u;
-  const uint32_t Y2 = valid ? (uint32_t)qy[idx] : 0u;
-  const bool neg_sign = valid && sg[lane] == 1;
-  // identity sentinel BEFORE the sign flip (neg adds K*p to the exact 0);
-  // its barriers also publish the W tables loaded by init_ctx
-  const bool inf = lane_is_sentinel(c, (X2 | Y2) != 0u);
+    const int* __restrict__ kp, const Consts* __restrict__ K, const double* __restrict__ wf,
+    int lanes, int b3) {
+  TcSmem& s = *reinterpret_cast<TcSmem*>(tc_smem);
+  TcCtx c;
+  init_tc(c, K, wf, kp, &s);
   G1Ops o{c, (uint32_t)b3};
-  const uint32_t Yn = o.neg(Y2);
-  const uint32_t Ys = neg_sign ? Yn : Y2;
-  uint32_t X3, Y3, Z3;
-  point_add_mixed(o, X1, Y1, Z1, X2, Ys, X3, Y3, Z3);
-  if (valid) {
-    ox[idx] = (int)(inf ? X1 : X3);
-    oy[idx] = (int)(inf ? Y1 : Y3);
-    oz[idx] = (int)(inf ? Z1 : Z3);
+  const int tiles = (lanes + TC_LANES - 1) / TC_LANES;
+  for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
+    c.kidx = 0;
+    const int lane = tile * TC_LANES + c.x;
+    const bool valid = lane < lanes;
+    const size_t idx = (size_t)c.r * lanes + lane;
+    const uint32_t X1 = valid ? (uint32_t)ax[idx] : 0u;
+    const uint32_t Y1 = valid ? (uint32_t)ay[idx] : 0u;
+    const uint32_t Z1 = valid ? (uint32_t)az[idx] : 0u;
+    const uint32_t X2 = valid ? (uint32_t)qx[idx] : 0u;
+    const uint32_t Y2 = valid ? (uint32_t)qy[idx] : 0u;
+    const bool neg_sign = valid && sg[lane] == 1;
+    // identity sentinel BEFORE the sign flip (neg adds K*p to the exact 0);
+    // on the first tile its barriers also publish what init_tc loaded
+    const bool inf = lane_is_sentinel(c, (X2 | Y2) != 0u);
+    const uint32_t Yn = o.neg(Y2);
+    const uint32_t Ys = neg_sign ? Yn : Y2;
+    uint32_t X3, Y3, Z3;
+    point_add_mixed(o, X1, Y1, Z1, X2, Ys, X3, Y3, Z3);
+    if (valid) {
+      ox[idx] = (int)(inf ? X1 : X3);
+      oy[idx] = (int)(inf ? Y1 : Y3);
+      oz[idx] = (int)(inf ? Z1 : Z3);
+    }
   }
 }
 
@@ -354,29 +612,62 @@ __global__ void __launch_bounds__(THREADS) fold_g2_kernel(G2Ptrs P, const int* _
 
 inline int blocks_for(int lanes) { return (lanes + TL - 1) / TL; }
 
+// Blocks of one full wave of a persistent kernel on the current device:
+// resident blocks per SM (occupancy API) x SMs, cached per device, after
+// allowing the kernel its dynamic shared memory on that device.
+struct Wave {
+  int dev = -1, blocks = 0;
+};
+Wave g1_wave, mul_wave;
+
+template <class Kern>
+int wave_blocks(Kern kern, Wave& w) {
+  int dev = 0;
+  cudaGetDevice(&dev);
+  if (w.dev != dev) {
+    int sms = 0, per_sm = 0;
+    cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)sizeof(TcSmem));
+    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kern, TC_THREADS, sizeof(TcSmem));
+    w.blocks = sms * (per_sm > 0 ? per_sm : 1);
+    w.dev = dev;
+  }
+  return w.blocks;
+}
+
+inline int tc_grid(int wave, int units) { return units < wave ? units : wave; }
+
 }  // namespace
 
 // ------------------------------------------------------------ C entry points
 // All pointers are device pointers; `stream` is a cudaStream_t.  Each
-// returns cudaGetLastError() right after its launch.
+// launch returns cudaGetLastError() right after it.  `wf` is the
+// ext_fragments_np table (2 x 1440 doubles).
 
 extern "C" int bmt_rns_mul(const int* xs, const int* ys, int* out, const void* consts,
-                           int lanes, void* stream) {
+                           const void* wf, int lanes, void* stream) {
   if (lanes <= 0) return 0;
-  rns_mul_kernel<<<blocks_for(lanes), dim3(TL, PC), 0, (cudaStream_t)stream>>>(
-      xs, ys, out, (const Consts*)consts, lanes);
+  const int units = (lanes + NMAX * TC_LANES - 1) / (NMAX * TC_LANES);
+  const int grid = tc_grid(wave_blocks(rns_mul_kernel, mul_wave), units);
+  rns_mul_kernel<<<grid, dim3(TC_LANES, PC), sizeof(TcSmem), (cudaStream_t)stream>>>(
+      xs, ys, out, (const Consts*)consts, (const double*)wf, lanes);
   return (int)cudaGetLastError();
 }
 
 extern "C" int bmt_fold_g1(const int* ax, const int* ay, const int* az, const int* qx,
                            const int* qy, const int* sg, int* ox, int* oy, int* oz,
-                           const int* kp, const void* consts, int lanes, int b3,
-                           void* stream) {
+                           const int* kp, const void* consts, const void* wf, int lanes,
+                           int b3, void* stream) {
   if (lanes <= 0) return 0;
-  fold_g1_kernel<<<blocks_for(lanes), dim3(TL, PC), 0, (cudaStream_t)stream>>>(
-      ax, ay, az, qx, qy, sg, ox, oy, oz, kp, (const Consts*)consts, lanes, b3);
+  const int grid = tc_grid(wave_blocks(fold_g1_kernel, g1_wave), (lanes + TC_LANES - 1) / TC_LANES);
+  fold_g1_kernel<<<grid, dim3(TC_LANES, PC), sizeof(TcSmem), (cudaStream_t)stream>>>(
+      ax, ay, az, qx, qy, sg, ox, oy, oz, kp, (const Consts*)consts, (const double*)wf, lanes,
+      b3);
   return (int)cudaGetLastError();
 }
+
+// Lanes that one full wave of K1's persistent blocks covers.
+extern "C" int bmt_fold_g1_wave_lanes() { return wave_blocks(fold_g1_kernel, g1_wave) * TC_LANES; }
 
 extern "C" int bmt_fold_g2(const int* a0, const int* a1, const int* a2, const int* a3,
                            const int* a4, const int* a5, const int* q0, const int* q1,

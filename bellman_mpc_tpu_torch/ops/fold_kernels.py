@@ -46,6 +46,10 @@ G2_CAP = 256
 # formula, in csrc/fold_kernels.cu's order); checked against fold_schedule
 G1_NUM_K = 5
 G2_NUM_K = 45
+# K1/K3 base extensions on the tensor cores: targets padded to tiles of 8,
+# sources to k-steps of 4 (csrc/fold_kernels.cu EXT_T, EXT_S)
+EXT_T = 40
+EXT_S = 36
 
 # ----------------------------------------------------------- padded layout
 
@@ -311,7 +315,8 @@ def kernel_consts_np(f) -> np.ndarray:
     """The kernels' constant block (uint32 words, see `Consts` in
     csrc/fold_kernels.cu): per padded row m, floor(2^32/m), kappa, M^-1
     (Hi rows), (M'/m'_j)^-1 (B' rows), M' mod m (B rows); then W1 and W2
-    transposed to [source][target]; then m_r and M'^-1 mod m_r."""
+    transposed to [source][target] (read by K2's multiply only; K1 and K3
+    take them from `ext_fragments_np`); then m_r and M'^-1 mod m_r."""
     c = pad_consts(f)
     k = f.k
     m = c["m_pad"]
@@ -339,6 +344,41 @@ def _kernel_consts(f, device) -> torch.Tensor:
     return t
 
 
+def ext_tables_np(f) -> np.ndarray:
+    """(2, EXT_T, EXT_S) float64: W1 and W2 ([target][source]) zero-padded to
+    the tensor-core tiles of csrc/fold_kernels.cu (36 targets -> 5 tiles of 8,
+    35 sources -> 9 k-steps of 4).  Every extension sum is below
+    35 * max(m - 1)^2 < 2^30, so the float64 products are exact."""
+    assert f.k * (max(f.moduli) - 1) ** 2 < 1 << 30, "extension sums leave the exact range"
+    W = np.zeros((2, EXT_T, EXT_S), np.float64)
+    W[0, : f.k + 1, : f.k] = f.W1_np
+    W[1, : f.k + 1, : f.k] = f.W2_np
+    return W
+
+
+def ext_fragments_np(f) -> np.ndarray:
+    """ext_tables_np in the A-fragment order of mma.m8n8k4 .f64, flat:
+    [table][8-target tile][k-step][lane], lane l holding W[8 tile + l // 4]
+    [4 k + l % 4], so a warp loads each fragment as 32 consecutive doubles."""
+    W = ext_tables_np(f).reshape(2, EXT_T // 8, 8, EXT_S // 4, 4)
+    return np.ascontiguousarray(W.transpose(0, 1, 3, 2, 4)).reshape(-1)
+
+
+def _ext_fragments(f, device) -> torch.Tensor:
+    ck = (id(f), "ext_fragments", str(torch.device(device)))
+    t = _DEV_CACHE.get(ck)
+    if t is None:
+        t = torch.from_numpy(ext_fragments_np(f)).to(device)
+        _DEV_CACHE[ck] = t
+    return t
+
+
+def fold_wave_lanes() -> int:
+    """Lanes that one full wave of K1's persistent blocks covers on the
+    current CUDA device (blocks per SM x SMs x 8 lanes)."""
+    return int(load().bmt_fold_g1_wave_lanes())
+
+
 def _check_tiles(tiles, lanes: int, device) -> None:
     for t in tiles:
         if t.device != device or t.dtype != torch.int32 or not t.is_contiguous():
@@ -364,7 +404,8 @@ def rns_mul_many(f, xs: torch.Tensor, ys: torch.Tensor) -> torch.Tensor:
         out = torch.empty_like(xp)
         lib = load()
         err = lib.bmt_rns_mul(xp.data_ptr(), yp.data_ptr(), out.data_ptr(),
-                              _kernel_consts(f, xp.device).data_ptr(), n, stream(xp.device))
+                              _kernel_consts(f, xp.device).data_ptr(),
+                              _ext_fragments(f, xp.device).data_ptr(), n, stream(xp.device))
         raise_on(err, "bmt_rns_mul")
         launch_counts["rns_mul_many"] += 1
     return rns_unpad_rows(f, out).reshape(shape)
@@ -399,8 +440,8 @@ def rns_fold_window(f, b3: int, acc_res, q, sgn, tab_bound, cap):
         lib = load()
         err = lib.bmt_fold_g1(
             *(t.data_ptr() for t in flat + qf), sg.data_ptr(),
-            *(o.data_ptr() for o in outs), kp.data_ptr(),
-            _kernel_consts(f, dev).data_ptr(), lanes, b3, stream(dev))
+            *(o.data_ptr() for o in outs), kp.data_ptr(), _kernel_consts(f, dev).data_ptr(),
+            _ext_fragments(f, dev).data_ptr(), lanes, b3, stream(dev))
         raise_on(err, "bmt_fold_g1")
         launch_counts["rns_fold_window"] += 1
     return tuple(o.reshape(shape) for o in outs)

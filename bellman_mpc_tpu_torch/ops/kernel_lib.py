@@ -106,10 +106,12 @@ def load():
         lib = ctypes.CDLL(str(_SO))
         P, I = ctypes.c_void_p, ctypes.c_int
         lib.bmt_mont_mul.argtypes = [P, P, P, ctypes.POINTER(ctypes.c_int), I, I, I, P]
-        lib.bmt_rns_mul.argtypes = [P, P, P, P, I, P]
-        lib.bmt_fold_g1.argtypes = [P] * 6 + [P] * 3 + [P, P, I, I, P]
+        lib.bmt_rns_mul.argtypes = [P, P, P, P, P, I, P]
+        lib.bmt_fold_g1.argtypes = [P] * 6 + [P] * 3 + [P, P, P, I, I, P]
         lib.bmt_fold_g2.argtypes = [P] * 11 + [P] * 6 + [P, P, I, I, P]
-        for fn in (lib.bmt_mont_mul, lib.bmt_rns_mul, lib.bmt_fold_g1, lib.bmt_fold_g2):
+        lib.bmt_fold_g1_wave_lanes.argtypes = []
+        for fn in (lib.bmt_mont_mul, lib.bmt_rns_mul, lib.bmt_fold_g1, lib.bmt_fold_g2,
+                   lib.bmt_fold_g1_wave_lanes):
             fn.restype = ctypes.c_int
         _lib = lib
     return _lib

@@ -10,11 +10,13 @@ Phases (each raises on failure; nothing is caught):
   2. build every kernel from bellman_mpc_tpu_torch/csrc with nvcc (one
      process per source, in parallel);
   3. hold each kernel bit-exact against its plain PyTorch version on the
-     card: K3 on (71, 16384) residues of random field elements, K1 at 16384
-     lanes and K2 at 8192 lanes on encoded curve points with both signs and
-     (0, 0) sentinels mixed in, over three chained windows; K4 against
-     LimbField.mul on Fr at the main path's (24, 16384), on Fp at a ragged
-     (36, 4099) and on the mock field, with inputs up to 2p;
+     card: K3 on (71, 16384) residues of random field elements and at a
+     ragged lane count one past a full wave of persistent blocks, K1 at
+     16384 lanes and K2 at 8192 lanes on encoded curve points with both
+     signs and (0, 0) sentinels mixed in, over three chained windows; K4
+     against LimbField.mul on Fr at the main path's (24, 16384), on Fp at a
+     ragged (36, 4099) and on the mock field, with inputs up to 2p; time K3
+     and K1 at 16384 lanes beside their plain versions;
   4. setup: generate_random_parameters for MiMC-322 (constants seed 42),
      then BatchProver(msm_strategy="rns") with its padded RNS tables;
   5. prove_batch on B=16 random witnesses, launch counts checked (K4 once,
@@ -58,11 +60,12 @@ REPLACES = {
     "rns_fold_window": "bellman_mpc_tpu/ops/pallas_kernels.py:470",
     "rns_fold_window_g2": "bellman_mpc_tpu/ops/pallas_kernels.py:663",
 }
-# H100 SXM device memory rate (NVIDIA data sheet) and 32-bit integer
-# instructions per clock per SM at compute capability 9.0 (CUDA C++
-# Programming Guide, arithmetic instruction throughput: add, multiply-add,
-# shift, logic and compare all 64)
+# H100 SXM device memory rate and dense int8 tensor-core rate (NVIDIA data
+# sheet), and 32-bit integer instructions per clock per SM at compute
+# capability 9.0 (CUDA C++ Programming Guide, arithmetic instruction
+# throughput: add, multiply-add, shift, logic and compare all 64)
 MEM_BYTES_PER_S = 3.35e12
+INT8_TENSOR_OPS_PER_S = 1979e12
 INT32_PER_CLOCK_PER_SM = 64
 
 
@@ -71,8 +74,9 @@ def log(msg: str) -> None:
 
 
 def cuda_time_ms(fn, reps: int) -> float:
-    """Mean device time of fn() over `reps` launches (CUDA events), after
-    one warm-up call."""
+    """Mean time of fn() over `reps` eager calls (CUDA events), after one
+    warm-up call: the device time, or the host's time to issue the calls
+    where that is longer."""
     import torch
 
     fn()
@@ -82,6 +86,31 @@ def cuda_time_ms(fn, reps: int) -> float:
     start.record()
     for _ in range(reps):
         fn()
+    stop.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(stop) / reps
+
+
+def graph_time_ms(fn, reps: int) -> float:
+    """Mean device time of fn() over `reps` replays of a CUDA graph that
+    captured one call (CUDA events), after one eager warm-up call.  The
+    replays queue the work faster than the card runs it, so the host's
+    per-call launch overhead (tens of microseconds of Python around each
+    kernel) does not stand in for the kernel's time."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g):
+        fn()
+    g.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    stop = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        g.replay()
     stop.record()
     torch.cuda.synchronize()
     return start.elapsed_time(stop) / reps
@@ -146,12 +175,20 @@ def check_kernels(device, rng: random.Random, g1_lanes=16384, g2_lanes=8192):
     plain = fk.rns_mul_block_plain(f, xp, yp)
     err_pad = max_abs_err(fk.rns_pad_rows(f, got), plain)
     assert err_pad == 0
+    # a ragged lane count one past a full wave of K1's persistent blocks
+    nr = fk.fold_wave_lanes() + 1
+    xr = f.encode([rng.randrange(f.p) for _ in range(nr)], device=device).res
+    yr = f.encode([rng.randrange(f.p) for _ in range(nr)], device=device).res
+    err_r = max_abs_err(fk.rns_pad_rows(f, fk.rns_mul_many(f, xr, yr)),
+                        fk.rns_mul_block_plain(f, fk.rns_pad_rows(f, xr), fk.rns_pad_rows(f, yr)))
+    assert err_r == 0, f"K3 disagrees with its plain version at {nr} lanes: max_abs_err {err_r}"
     results["rns_mul_many"] = dict(
-        lanes=n3, max_abs_err=err,
-        ms=cuda_time_ms(lambda: fk.rns_mul_many(f, xs, ys), 20),
+        lanes=n3, ragged_lanes=nr, max_abs_err=max(err, err_r),
+        ms=graph_time_ms(lambda: fk.rns_mul_many(f, xs, ys), 20),
+        eager_ms=cuda_time_ms(lambda: fk.rns_mul_many(f, xs, ys), 20),
         plain_ms=cuda_time_ms(lambda: fk.rns_mul_block_plain(f, xp, yp), 3),
     )
-    log(f"K3 rns_mul_many: bit-exact at (71, {n3})")
+    log(f"K3 rns_mul_many: bit-exact at (71, {n3}) and (71, {nr})")
 
     for name, group, hostg, rops, lanes, npool in (
         ("rns_fold_window", g1_device, G1, rpt.rns_g1_ops(), g1_lanes, 64),
@@ -164,6 +201,7 @@ def check_kernels(device, rng: random.Random, g1_lanes=16384, g2_lanes=8192):
         acc = tuple(fk.rns_pad_rows(f, v.res) for v in rpt.point_identity(rops, (lanes,), device))
         worst = 0
         for _ in range(3):
+            acc_in = acc
             q, sgn = gather_q(pool, lanes, rng, device)
             if g2:
                 flat = lambda t: [t[:, 0].contiguous(), t[:, 1].contiguous()]
@@ -182,6 +220,13 @@ def check_kernels(device, rng: random.Random, g1_lanes=16384, g2_lanes=8192):
             assert err == 0, f"{name} disagrees with its plain version: max_abs_err {err}"
             acc = got
         results[name] = dict(lanes=lanes, max_abs_err=worst)
+        if not g2:  # K1 on the last window's inputs
+            sg32 = sgn.to(torch.int32)
+            kern = lambda: fk.rns_fold_window(f, rops.b3, acc_in, q, sgn, tab_bound, cap)
+            results[name].update(
+                ms=graph_time_ms(kern, 20), eager_ms=cuda_time_ms(kern, 20),
+                plain_ms=cuda_time_ms(lambda: fk.fold_window_g1_plain(
+                    f, rops.b3, acc_in, q[0], q[1], sg32, fk._tab_n(tab_bound), int(cap)), 3))
         log(f"{name}: bit-exact over 3 chained windows at {lanes} lanes")
     return results
 
@@ -237,7 +282,7 @@ def time_fold_windows(bp, rng: random.Random):
             ref = tuple(torch.stack([ref[2 * i], ref[2 * i + 1]], dim=1) for i in range(3))
         err = max_abs_err(tuple(t.reshape(got[0].shape) for t in ref), got)
         assert err == 0, f"{name} disagrees with its plain version on table points"
-        out[name] = dict(lanes=lanes, max_abs_err=err, ms=cuda_time_ms(kern, 20),
+        out[name] = dict(lanes=lanes, max_abs_err=err, ms=graph_time_ms(kern, 20),
                          plain_ms=cuda_time_ms(plain, 3))
     return out
 
@@ -273,7 +318,8 @@ def check_mont_mul(device, rng: random.Random):
         assert err == 0, f"K4 on {name} disagrees with its plain version: max_abs_err {err}"
         out[name] = dict(shape=[f.L, n], max_abs_err=err)
         if name == "Fr":
-            out[name].update(ms=cuda_time_ms(lambda: mont_mul(f, a, b), 50),
+            out[name].update(ms=graph_time_ms(lambda: mont_mul(f, a, b), 50),
+                             eager_ms=cuda_time_ms(lambda: mont_mul(f, a, b), 50),
                              plain_ms=cuda_time_ms(lambda: f.mul(a, b), 5))
         log(f"K4 mont_mul: bit-exact at {name} ({f.L}, {n})")
     return out
@@ -290,13 +336,19 @@ def int32_ops_per_s() -> float:
     return torch.cuda.get_device_properties(0).multi_processor_count * INT32_PER_CLOCK_PER_SM * mhz * 1e6
 
 
-def rns_mul_ops(k: int = 35) -> int:
-    """Integer instructions of one RNS Montgomery multiply per lane, counting
-    only what the algorithm cannot skip: the two base extensions' k (k + 1)
-    multiply-adds each, and three (product, Barrett high product, multiply-
-    subtract) for each of the 2k+1 channel products, the k kappa, k+1 M^-1,
-    k (M'/m')^-1 and k correction products and the 2(k+1) dot reductions."""
-    return 2 * k * (k + 1) + 3 * ((2 * k + 1) + k + (k + 1) + k + 2 * (k + 1) + k)
+def rns_mul_ops(k: int = 35):
+    """(tensor-core ops, int32 instructions) of one RNS Montgomery multiply
+    per lane, counting only what the algorithm cannot skip, each on the
+    fastest exact unit the card has for it.  The two base extensions' k (k
+    + 1) multiply-adds each go on the int8 tensor cores: 12-bit operands
+    split into 6-bit halves make 4 int8 products per multiply-add, each a
+    multiply and an add (2 ops).  The rest are three int32 instructions
+    (product, Barrett high product, multiply-subtract) for each of the 2k+1
+    channel products, the k kappa, k+1 M^-1, k (M'/m')^-1 and k correction
+    products and the 2(k+1) extension reductions."""
+    tensor = 2 * k * (k + 1) * 4 * 2
+    int32 = 3 * ((2 * k + 1) + k + (k + 1) + k + 2 * (k + 1) + k)
+    return tensor, int32
 
 
 def mont_mul_ops(f) -> int:
@@ -310,11 +362,12 @@ def mont_mul_ops(f) -> int:
     return 9 * f.L + 8 * s * s + s
 
 
-def bound(nbytes: float, ops: float, int_rate: float):
-    """(bound_ms, bound_by): the larger of the bytes over the memory rate and
-    the integer instructions over the card's integer rate."""
+def bound(nbytes: float, int_ops: float, int_rate: float, tensor_ops: float = 0.0):
+    """(bound_ms, bound_by): the largest of the bytes over the memory rate,
+    the int32 instructions over the card's integer rate and the tensor-core
+    ops over the int8 tensor-core rate (the two units run side by side)."""
     t_bytes = nbytes / MEM_BYTES_PER_S * 1e3
-    t_ops = ops / int_rate * 1e3
+    t_ops = max(int_ops / int_rate, tensor_ops / INT8_TENSOR_OPS_PER_S) * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -322,17 +375,17 @@ def kernel_bounds(int_rate: float, k3_lanes: int, fold_lanes: dict, mont_lanes: 
     """bound_ms and bound_by of each kernel at the shapes it was timed at:
     each input read once and each output written once (int32 words; the 71
     real RNS channels, not the 80-row padded tiles), and the RNS multiplies'
-    (K1 11, K2 33) or the Fr Montgomery product's integer instructions."""
+    (K1 11, K2 33) or the Fr Montgomery product's operations."""
     from bellman_mpc_tpu_torch.fields.bls12_381 import fr
 
     row = 71 * 4
-    r = rns_mul_ops()
+    tc, i32 = rns_mul_ops()
     g1, g2 = fold_lanes["rns_fold_window"], fold_lanes["rns_fold_window_g2"]
     return {
         "mont_mul": bound(3 * fr.L * mont_lanes * 4, mont_mul_ops(fr) * mont_lanes, int_rate),
-        "rns_mul_many": bound(3 * row * k3_lanes, r * k3_lanes, int_rate),
-        "rns_fold_window": bound((8 * row + 4) * g1, 11 * r * g1, int_rate),
-        "rns_fold_window_g2": bound((16 * row + 4) * g2, 33 * r * g2, int_rate),
+        "rns_mul_many": bound(3 * row * k3_lanes, i32 * k3_lanes, int_rate, tc * k3_lanes),
+        "rns_fold_window": bound((8 * row + 4) * g1, 11 * i32 * g1, int_rate, 11 * tc * g1),
+        "rns_fold_window_g2": bound((16 * row + 4) * g2, 33 * i32 * g2, int_rate, 33 * tc * g2),
     }
 
 

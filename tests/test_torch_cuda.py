@@ -5,8 +5,10 @@ Imports neither jax nor the reference, so it runs on the GPU machine:
     python3 -m pytest --noconftest -q tests/test_torch_cuda.py
 
 Every test here needs a CUDA card and skips without one.  Lane counts that
-are not a multiple of the fold kernels' 4-lane tile or of the limb
-multiply's 256-thread block exercise the ragged edge.
+are not a multiple of K1/K3's 8-lane tile, K2's 4-lane tile or the limb
+multiply's 256-thread block exercise the ragged edge; "wave+1" is one lane
+past a full wave of K1's persistent blocks, so one block takes a second,
+ragged tile.
 """
 
 import random
@@ -40,26 +42,56 @@ def _tile(rng, n, dev, zero_cols=()):
     return t.contiguous()
 
 
+def _lanes(lanes):
+    return fk.fold_wave_lanes() + 1 if lanes == "wave+1" else lanes
+
+
+TC_LANES = [13, 256, 257, "wave+1"]
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("lanes", [13, 256])
+@pytest.mark.parametrize("lanes", TC_LANES)
 def test_k3_matches_plain(dev, lanes):
+    lanes = _lanes(lanes)
     rng = random.Random(lanes)
-    x, y = _tile(rng, lanes, dev), _tile(rng, lanes, dev)
+    x, y = _tile(rng, lanes, dev, [0, lanes - 1]), _tile(rng, lanes, dev)
+    before = kernel_lib.launch_counts["rns_mul_many"]
     got = fk.rns_mul_many(F, fk.rns_unpad_rows(F, x), fk.rns_unpad_rows(F, y))
     assert torch.equal(fk.rns_pad_rows(F, got), fk.rns_mul_block_plain(F, x, y))
+    assert kernel_lib.launch_counts["rns_mul_many"] == before + 1
+
+
+def _k1_inputs(rng, lanes, dev):
+    q = (_tile(rng, lanes, dev, [0, 5, lanes - 1]), _tile(rng, lanes, dev, [0, 7, lanes - 1]))
+    sg = torch.tensor([rng.randrange(2) == 1 for _ in range(lanes)], device=dev)
+    return q, sg
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("lanes", [13, 256])
+@pytest.mark.parametrize("lanes", TC_LANES)
 def test_k1_matches_plain(dev, lanes):
+    lanes = _lanes(lanes)
     rng = random.Random(lanes + 1)
     acc = tuple(_tile(rng, lanes, dev) for _ in range(3))
-    q = (_tile(rng, lanes, dev, [0, 5]), _tile(rng, lanes, dev, [0, 7]))
-    sg = torch.tensor([rng.randrange(2) == 1 for _ in range(lanes)], device=dev)
+    q, sg = _k1_inputs(rng, lanes, dev)
     got = fk.rns_fold_window(F, 12, acc, q, sg, Fraction(37), Fraction(fk.G1_CAP))
     want = fk.fold_window_g1_plain(F, 12, acc, q[0], q[1], sg.to(torch.int32), 37, fk.G1_CAP)
     assert all(torch.equal(g, w) for g, w in zip(got, want))
     assert fk.launch_counts["rns_fold_window"] > 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("lanes", [257, "wave+1"])
+def test_k1_chained_windows(dev, lanes):
+    """Three windows, each kernel output the next window's accumulator."""
+    lanes = _lanes(lanes)
+    rng = random.Random(lanes + 3)
+    acc = want = tuple(_tile(rng, lanes, dev) for _ in range(3))
+    for _ in range(3):
+        q, sg = _k1_inputs(rng, lanes, dev)
+        acc = fk.rns_fold_window(F, 12, acc, q, sg, Fraction(37), Fraction(fk.G1_CAP))
+        want = fk.fold_window_g1_plain(F, 12, want, q[0], q[1], sg.to(torch.int32), 37, fk.G1_CAP)
+        assert all(torch.equal(g, w) for g, w in zip(acc, want))
 
 
 @pytest.mark.cuda

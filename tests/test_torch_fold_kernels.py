@@ -85,3 +85,21 @@ def test_wrappers_reject_other_devices():
     x = torch.zeros((TF.C, 4), dtype=torch.int32, device="meta")
     with pytest.raises(ValueError):
         fk.rns_mul_many(TF, x, x)
+
+
+def test_ext_tables_match_w():
+    """K1/K3's padded float64 extension tables hold W1/W2 exactly (zeros in
+    the padding), the fragment order maps back to them, and every extension
+    sum stays below 2^30, where float64 is exact."""
+    W = fk.ext_tables_np(TF)
+    k = TF.k
+    assert W.shape == (2, fk.EXT_T, fk.EXT_S) and W.dtype == np.float64
+    for w, ref in zip(W, (TF.W1_np, TF.W2_np)):
+        assert np.array_equal(w[: k + 1, :k], ref.astype(np.float64))
+        assert not w[k + 1 :].any() and not w[:, k:].any()
+    frag = fk.ext_fragments_np(TF).reshape(2, fk.EXT_T // 8, fk.EXT_S // 4, 32)
+    lane = np.arange(32)
+    for t in range(fk.EXT_T // 8):
+        for s in range(fk.EXT_S // 4):
+            assert np.array_equal(frag[:, t, s], W[:, 8 * t + lane // 4, 4 * s + lane % 4])
+    assert k * (max(TF.moduli) - 1) ** 2 < 1 << 30
