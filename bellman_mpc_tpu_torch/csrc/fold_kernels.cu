@@ -242,21 +242,14 @@ __device__ __forceinline__ void dmma(double& c0, double& c1, double a, double b)
 
 // One 8-target tile of an extension: c_j = sum_i W[8 tile + l/4][i] *
 // src[2 (l%4) + j][i].  Every partial sum is an integer below 2^30, exact
-// in double, so the two accumulation chains may be added in any order.
+// in double.
 __device__ __forceinline__ void ext_tile(const double* W, const double (*src)[EXT_S], int tile,
                                          int l, double& c0, double& c1) {
   const double* w = W + tile * EXT_KSTEPS * FRAG + l;
   const double* b = src[l >> 2] + (l & 3);
-  double e0 = 0.0, e1 = 0.0, o0 = 0.0, o1 = 0.0;
+  c0 = c1 = 0.0;
 #pragma unroll
-  for (int k = 0; k < EXT_KSTEPS; ++k) {
-    if (k & 1)
-      dmma(o0, o1, w[k * FRAG], b[4 * k]);
-    else
-      dmma(e0, e1, w[k * FRAG], b[4 * k]);
-  }
-  c0 = e0 + o0;
-  c1 = e1 + o1;
+  for (int k = 0; k < EXT_KSTEPS; ++k) dmma(c0, c1, w[k * FRAG], b[4 * k]);
 }
 
 // Per-thread context of the tensor-core multiply: this thread's row

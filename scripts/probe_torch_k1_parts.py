@@ -26,16 +26,7 @@ SRC = ROOT / "bellman_mpc_tpu_torch" / "csrc" / "fold_kernels.cu"
 DMMA = '''  asm("mma.sync.aligned.m8n8k4.row.col.f64.f64.f64.f64 {%0, %1}, {%2}, {%3}, {%0, %1};"
       : "+d"(c0), "+d"(c1)
       : "d"(a), "d"(b));'''
-TWO_CHAINS = '''  double e0 = 0.0, e1 = 0.0, o0 = 0.0, o1 = 0.0;
-#pragma unroll
-  for (int k = 0; k < EXT_KSTEPS; ++k) {
-    if (k & 1)
-      dmma(o0, o1, w[k * FRAG], b[4 * k]);
-    else
-      dmma(e0, e1, w[k * FRAG], b[4 * k]);
-  }
-  c0 = e0 + o0;
-  c1 = e1 + o1;'''
+ONE_CHAIN = "#pragma unroll\n  for (int k = 0; k < EXT_KSTEPS; ++k) dmma(c0, c1, w[k * FRAG], b[4 * k]);"
 EXT1 = "    for (int i = warp; i < N * EXT_TILES; i += TC_WARPS) ext1_tile(i / EXT_TILES, i % EXT_TILES);"
 EXT2 = "    for (int i = warp; i < N * EXT_TILES; i += TC_WARPS) ext2_tile(i / EXT_TILES, i % EXT_TILES);"
 BOUNDS = "__global__ void __launch_bounds__(TC_THREADS, 2) fold_g1_kernel"
@@ -43,9 +34,12 @@ BOUNDS = "__global__ void __launch_bounds__(TC_THREADS, 2) fold_g1_kernel"
 # name -> (what it shows, [(text in the source, replacement)])
 VARIANTS = {
     "as built": ("the kernel itself", []),
-    "one chain": ("one accumulation chain per tile instead of two (exact)",
-                  [(TWO_CHAINS, "  c0 = 0.0;\n  c1 = 0.0;\n#pragma unroll\n"
-                                "  for (int k = 0; k < EXT_KSTEPS; ++k) dmma(c0, c1, w[k * FRAG], b[4 * k]);")]),
+    "two chains": ("two accumulation chains per tile (even and odd k-steps) instead of one (exact)",
+                   [(ONE_CHAIN, "  double o0 = 0.0, o1 = 0.0;\n#pragma unroll\n"
+                                "  for (int k = 0; k < EXT_KSTEPS; k += 2) dmma(c0, c1, w[k * FRAG], b[4 * k]);\n"
+                                "#pragma unroll\n"
+                                "  for (int k = 1; k < EXT_KSTEPS; k += 2) dmma(o0, o1, w[k * FRAG], b[4 * k]);\n"
+                                "  c0 += o0;\n  c1 += o1;")]),
     "dfma for mma": ("each m8n8k4 step replaced by two double FMAs: the cost of the tensor-core instruction",
                      [(DMMA, "  c0 = fma(a, b, c0);\n  c1 = fma(a, b, c1);")]),
     "no mma": ("each extension tile's loads and products replaced by one shared load; the epilogues still run",
