@@ -659,8 +659,12 @@ extern "C" int bmt_fold_g1(const int* ax, const int* ay, const int* az, const in
   return (int)cudaGetLastError();
 }
 
-// Lanes that one full wave of K1's persistent blocks covers.
+// Lanes that one full wave of K1's (8-lane tiles) or K3's (NMAX tiles per
+// unit) persistent blocks covers.
 extern "C" int bmt_fold_g1_wave_lanes() { return wave_blocks(fold_g1_kernel, g1_wave) * TC_LANES; }
+extern "C" int bmt_rns_mul_wave_lanes() {
+  return wave_blocks(rns_mul_kernel, mul_wave) * NMAX * TC_LANES;
+}
 
 extern "C" int bmt_fold_g2(const int* a0, const int* a1, const int* a2, const int* a3,
                            const int* a4, const int* a5, const int* q0, const int* q1,

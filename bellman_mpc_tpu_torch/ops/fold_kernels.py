@@ -379,6 +379,12 @@ def fold_wave_lanes() -> int:
     return int(load().bmt_fold_g1_wave_lanes())
 
 
+def rns_mul_wave_lanes() -> int:
+    """Lanes that one full wave of K3's persistent blocks covers on the
+    current CUDA device (blocks per SM x SMs x 6 tiles x 8 lanes)."""
+    return int(load().bmt_rns_mul_wave_lanes())
+
+
 def _check_tiles(tiles, lanes: int, device) -> None:
     for t in tiles:
         if t.device != device or t.dtype != torch.int32 or not t.is_contiguous():

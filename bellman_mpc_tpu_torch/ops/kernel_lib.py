@@ -20,7 +20,7 @@ import subprocess
 import sys
 import time
 from pathlib import Path
-from typing import Dict
+from typing import Dict, List
 
 import torch
 
@@ -51,6 +51,14 @@ def _sources():
     return sorted(_CSRC.glob("*.cu"))
 
 
+def nvcc_command(src, out, shared: bool = False) -> List[str]:
+    """The nvcc command line for one source: sm_90a, -O3, ptxas's report;
+    an object file, or with `shared` a shared library of that source alone."""
+    return [_nvcc(), "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+            "-Xcompiler", "-fPIC", "-Xptxas", "-v", "-shared" if shared else "-c",
+            str(src), "-o", str(out)]
+
+
 def build(verbose: bool = False) -> float:
     """Compile csrc/*.cu for sm_90a, one nvcc per source in parallel, and
     link them into build/libbmt_fold.so.  Returns the build seconds; raises
@@ -63,9 +71,7 @@ def build(verbose: bool = False) -> float:
     jobs = []
     for src in _sources():
         obj = _BUILD / f"{src.stem}.{tag}.o"
-        cmd = [nvcc, "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-               "-Xcompiler", "-fPIC", "-Xptxas", "-v", "-c", str(src), "-o", str(obj)]
-        jobs.append((src, obj, subprocess.Popen(cmd, stdout=subprocess.PIPE,
+        jobs.append((src, obj, subprocess.Popen(nvcc_command(src, obj), stdout=subprocess.PIPE,
                                                 stderr=subprocess.PIPE, text=True)))
     reports, failed = [], []
     for src, obj, proc in jobs:
@@ -97,23 +103,34 @@ def _stale() -> bool:
     return any(src.stat().st_mtime > built for src in _sources())
 
 
+_P, _I = ctypes.c_void_p, ctypes.c_int
+# every C entry point's argument types (each returns an int)
+ARGTYPES = {
+    "bmt_mont_mul": [_P, _P, _P, ctypes.POINTER(ctypes.c_int), _I, _I, _I, _P],
+    "bmt_rns_mul": [_P, _P, _P, _P, _P, _I, _P],
+    "bmt_fold_g1": [_P] * 6 + [_P] * 3 + [_P, _P, _P, _I, _I, _P],
+    "bmt_fold_g2": [_P] * 11 + [_P] * 6 + [_P, _P, _I, _I, _P],
+    "bmt_fold_g1_wave_lanes": [],
+    "bmt_rns_mul_wave_lanes": [],
+}
+
+
+def bind(lib: ctypes.CDLL, names=ARGTYPES) -> ctypes.CDLL:
+    """Set the ctypes signature of each named entry point of `lib`."""
+    for name in names:
+        fn = getattr(lib, name)
+        fn.argtypes = ARGTYPES[name]
+        fn.restype = ctypes.c_int
+    return lib
+
+
 def load():
     """The loaded library with every entry point's ctypes signature."""
     global _lib
     if _lib is None:
         if _stale():
             build()
-        lib = ctypes.CDLL(str(_SO))
-        P, I = ctypes.c_void_p, ctypes.c_int
-        lib.bmt_mont_mul.argtypes = [P, P, P, ctypes.POINTER(ctypes.c_int), I, I, I, P]
-        lib.bmt_rns_mul.argtypes = [P, P, P, P, P, I, P]
-        lib.bmt_fold_g1.argtypes = [P] * 6 + [P] * 3 + [P, P, P, I, I, P]
-        lib.bmt_fold_g2.argtypes = [P] * 11 + [P] * 6 + [P, P, I, I, P]
-        lib.bmt_fold_g1_wave_lanes.argtypes = []
-        for fn in (lib.bmt_mont_mul, lib.bmt_rns_mul, lib.bmt_fold_g1, lib.bmt_fold_g2,
-                   lib.bmt_fold_g1_wave_lanes):
-            fn.restype = ctypes.c_int
-        _lib = lib
+        _lib = bind(ctypes.CDLL(str(_SO)))
     return _lib
 
 

@@ -175,8 +175,8 @@ def check_kernels(device, rng: random.Random, g1_lanes=16384, g2_lanes=8192):
     plain = fk.rns_mul_block_plain(f, xp, yp)
     err_pad = max_abs_err(fk.rns_pad_rows(f, got), plain)
     assert err_pad == 0
-    # a ragged lane count one past a full wave of K1's persistent blocks
-    nr = fk.fold_wave_lanes() + 1
+    # a ragged lane count one past a full wave of K3's persistent blocks
+    nr = fk.rns_mul_wave_lanes() + 1
     xr = f.encode([rng.randrange(f.p) for _ in range(nr)], device=device).res
     yr = f.encode([rng.randrange(f.p) for _ in range(nr)], device=device).res
     err_r = max_abs_err(fk.rns_pad_rows(f, fk.rns_mul_many(f, xr, yr)),
@@ -231,9 +231,10 @@ def check_kernels(device, rng: random.Random, g1_lanes=16384, g2_lanes=8192):
     return results
 
 
-def time_fold_windows(bp, rng: random.Random):
-    """Phase 6b: one window of K1 (h table, 16384 lanes at B=16) and of K2
-    (b2 table, 8192 lanes) on gathered table points, kernel vs plain."""
+def fold_window_cases(bp, rng: random.Random):
+    """One window of K1 (h table, 16384 lanes at B=16) and of K2 (b2 table,
+    8192 lanes) on gathered table points: {name: (lanes, kernel call, plain
+    call)}, where the plain call's output is laid out as the kernel's."""
     import torch
 
     from bellman_mpc_tpu_torch.curves import rns_point as rpt
@@ -241,9 +242,8 @@ def time_fold_windows(bp, rng: random.Random):
 
     f = rpt.default_rns_field()
     dev = bp.device
-    out = {}
-    for name, crs, rops in (("rns_fold_window", bp.crs_h, rpt.rns_g1_ops()),
-                            ("rns_fold_window_g2", bp.crs_b2, rpt.rns_g2_ops())):
+
+    def case(crs, rops):
         (xs, ys), bound, c = bp._tables[id(crs)]
         g2 = rops.fp2
         n = crs[0].shape[-1]
@@ -267,20 +267,32 @@ def time_fold_windows(bp, rng: random.Random):
                               t[:, 1].reshape(fk.PAD_C, lanes).contiguous()]
             a_f = sum((flat(t) for t in acc), [])
             q_f = sum((flat(t) for t in q), [])
-            plain = lambda: fk.fold_window_g2_plain(f, b, a_f, q_f, sgn.reshape(-1).to(torch.int32),
-                                                    fk._tab_n(bound), int(cap))
+
+            def plain():
+                ref = fk.fold_window_g2_plain(f, b, a_f, q_f, sgn.reshape(-1).to(torch.int32),
+                                              fk._tab_n(bound), int(cap))
+                ref = tuple(torch.stack([ref[2 * i], ref[2 * i + 1]], dim=1) for i in range(3))
+                return tuple(t.reshape(acc[0].shape) for t in ref)
         else:
             a_f = [t.reshape(fk.PAD_C, lanes).contiguous() for t in acc]
             q_f = [t.reshape(fk.PAD_C, lanes).contiguous() for t in q]
-            plain = lambda: fk.fold_window_g1_plain(f, b, a_f, q_f[0], q_f[1],
-                                                    sgn.reshape(-1).to(torch.int32),
-                                                    fk._tab_n(bound), int(cap))
-        kern = lambda: fold(f, b, acc, q, sgn, bound, cap)
-        got = kern()
-        ref = plain()
-        if g2:
-            ref = tuple(torch.stack([ref[2 * i], ref[2 * i + 1]], dim=1) for i in range(3))
-        err = max_abs_err(tuple(t.reshape(got[0].shape) for t in ref), got)
+
+            def plain():
+                ref = fk.fold_window_g1_plain(f, b, a_f, q_f[0], q_f[1], sgn.reshape(-1).to(torch.int32),
+                                              fk._tab_n(bound), int(cap))
+                return tuple(t.reshape(acc[0].shape) for t in ref)
+        return lanes, (lambda: fold(f, b, acc, q, sgn, bound, cap)), plain
+
+    return {"rns_fold_window": case(bp.crs_h, rpt.rns_g1_ops()),
+            "rns_fold_window_g2": case(bp.crs_b2, rpt.rns_g2_ops())}
+
+
+def time_fold_windows(bp, rng: random.Random):
+    """Phase 6b: K1 and K2 on gathered table points (fold_window_cases),
+    bit-exact against their plain versions, and both timed."""
+    out = {}
+    for name, (lanes, kern, plain) in fold_window_cases(bp, rng).items():
+        err = max_abs_err(kern(), plain())
         assert err == 0, f"{name} disagrees with its plain version on table points"
         out[name] = dict(lanes=lanes, max_abs_err=err, ms=graph_time_ms(kern, 20),
                          plain_ms=cuda_time_ms(plain, 3))

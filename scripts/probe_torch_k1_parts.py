@@ -54,7 +54,9 @@ VARIANTS = {
 }
 
 
-def build(name: str, src: str, tmp: Path, nvcc: str):
+def build(name: str, src: str, tmp: Path):
+    from bellman_mpc_tpu_torch.ops.kernel_lib import nvcc_command
+
     text = src
     for old, new in VARIANTS[name][1]:
         if old not in text:
@@ -63,9 +65,7 @@ def build(name: str, src: str, tmp: Path, nvcc: str):
     stem = name.replace(" ", "_").replace("/", "_")
     cu, so = tmp / f"{stem}.cu", tmp / f"{stem}.so"
     cu.write_text(text)
-    proc = subprocess.run([nvcc, "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-                           "-Xcompiler", "-fPIC", "-Xptxas", "-v", "-shared", str(cu), "-o", str(so)],
-                          capture_output=True, text=True)
+    proc = subprocess.run(nvcc_command(cu, so, shared=True), capture_output=True, text=True)
     if proc.returncode != 0:
         raise RuntimeError(f"nvcc failed for {name!r}:\n{proc.stderr}")
     lines = proc.stderr.splitlines()
@@ -83,14 +83,13 @@ def main() -> int:
     sys.path.insert(0, str(ROOT))
     from bellman_mpc_tpu_torch.curves import rns_point as rpt
     from bellman_mpc_tpu_torch.ops import fold_kernels as fk
-    from bellman_mpc_tpu_torch.ops.kernel_lib import _nvcc, stream
+    from bellman_mpc_tpu_torch.ops.kernel_lib import bind, stream
 
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader", "-i", "0"],
                          capture_output=True, text=True, check=True).stdout.strip())
     src = SRC.read_text()
     with tempfile.TemporaryDirectory() as d, ThreadPoolExecutor(len(VARIANTS)) as pool:
-        nvcc = _nvcc()
-        built = dict(zip(VARIANTS, pool.map(lambda n: build(n, src, Path(d), nvcc), VARIANTS)))
+        built = dict(zip(VARIANTS, pool.map(lambda n: build(n, src, Path(d)), VARIANTS)))
         dev = torch.device("cuda", 0)
         f = rpt.default_rns_field()
         rng = random.Random(1)
@@ -106,13 +105,9 @@ def main() -> int:
         outs = [torch.empty_like(ins[0]) for _ in range(3)]
         kp = fk._kp_rows(f, fk.fold_schedule(f, 12, 37, fk.G1_CAP, False), dev)
         consts, wf = fk._kernel_consts(f, dev), fk._ext_fragments(f, dev)
-        P, I = ctypes.c_void_p, ctypes.c_int
         ref = None
         for name, (so, report) in built.items():
-            lib = ctypes.CDLL(str(so))
-            lib.bmt_fold_g1.argtypes = [P] * 9 + [P, P, P, I, I, P]
-            lib.bmt_fold_g1.restype = I
-            lib.bmt_fold_g1_wave_lanes.restype = I
+            lib = bind(ctypes.CDLL(str(so)), ("bmt_fold_g1", "bmt_fold_g1_wave_lanes"))
             times = {}
             for n in (lib.bmt_fold_g1_wave_lanes(), lanes):
                 args = ([t.data_ptr() for t in ins] + [sg.data_ptr()] + [o.data_ptr() for o in outs]

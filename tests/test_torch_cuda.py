@@ -7,8 +7,8 @@ Imports neither jax nor the reference, so it runs on the GPU machine:
 Every test here needs a CUDA card and skips without one.  Lane counts that
 are not a multiple of K1/K3's 8-lane tile, K2's 4-lane tile or the limb
 multiply's 256-thread block exercise the ragged edge; "wave+1" is one lane
-past a full wave of K1's persistent blocks, so one block takes a second,
-ragged tile.
+past a full wave of the kernel's own persistent blocks (K1: 8-lane tiles,
+K3: units of 6 tiles), so one block takes a second, ragged unit.
 """
 
 import random
@@ -42,8 +42,8 @@ def _tile(rng, n, dev, zero_cols=()):
     return t.contiguous()
 
 
-def _lanes(lanes):
-    return fk.fold_wave_lanes() + 1 if lanes == "wave+1" else lanes
+def _lanes(lanes, wave=fk.fold_wave_lanes):
+    return wave() + 1 if lanes == "wave+1" else lanes
 
 
 TC_LANES = [13, 256, 257, "wave+1"]
@@ -52,7 +52,7 @@ TC_LANES = [13, 256, 257, "wave+1"]
 @pytest.mark.cuda
 @pytest.mark.parametrize("lanes", TC_LANES)
 def test_k3_matches_plain(dev, lanes):
-    lanes = _lanes(lanes)
+    lanes = _lanes(lanes, fk.rns_mul_wave_lanes)
     rng = random.Random(lanes)
     x, y = _tile(rng, lanes, dev, [0, lanes - 1]), _tile(rng, lanes, dev)
     before = kernel_lib.launch_counts["rns_mul_many"]
