@@ -2,28 +2,22 @@
 //
 // Replaces the Pallas TPU kernels of bellman_mpc_tpu/ops/pallas_kernels.py:
 //   bmt_rns_mul  (K3) <- _jit_rns_mul_pallas; its body _rns_mul_block is
-//                        TcCtx::mul_many below, the inner multiply of K1
-//                        (the standalone kernel batches 6 lane tiles)
+//                        TcCtx::mul_many below, the one RNS multiply of this
+//                        file (the standalone kernel batches 6 lane tiles)
 //   bmt_fold_g1  (K1) <- _jit_mixed_add_pallas   (one G1 fold window)
 //   bmt_fold_g2  (K2) <- _jit_mixed_add_pallas_g2 (one G2 fold window)
 // The plain PyTorch versions sit beside the wrappers in ops/fold_kernels.py.
 //
-// Two RNS multiplies live here for now.  TcCtx::mul_many (K1, K3) is the
-// Hopper design described below.  Ctx::mul (K2 only) is the first design:
-// 4 lanes per block, each base-extension target thread running its 35-term
-// dot product from shared memory in uint32.  K2 moves onto TcCtx next, and
-// Ctx goes with it.
+// What bounds K1 and K2: a fold window is a dependent chain of RNS
+// Montgomery multiplies, each with two cross-channel base extensions (36 x
+// 35 dot products per lane): K1 runs 11 per lane, K2 33 (Karatsuba makes
+// each of its 11 Fp2 products three Fp products).  Their essential HBM
+// traffic is small (accumulator in/out plus the gathered table points: 8 x
+// 71 int32 per lane for K1, 16 x 71 for K2), so both are bound by latency:
+// the extension dot products and the block barriers between the stages of
+// each multiply.
 //
-// What bounds K1: a fold window is a dependent chain of 11 RNS Montgomery
-// multiplies, each with two cross-channel base extensions (36 x 35 dot
-// products per lane).  Its essential HBM traffic is small (accumulator
-// in/out plus the gathered table points, 8 x 71 int32 per lane), so K1 is
-// bound by latency: the extension dot products and the block barriers
-// between the stages of each multiply.  In the first design the dots ran
-// as 35 shared-memory load pairs per target thread, on 36 of 80 rows, and
-// every 4-lane block reloaded the 2 x 1260-word W tables.
-//
-// What TcCtx does about it:
+// What TcCtx::mul_many does about it:
 //   * The extensions run on the FP64 tensor cores: each is a (40 targets x
 //     36 sources) x (36 x 8 lanes) product, 5 warp tiles of 9 mma.m8n8k4
 //     f64 steps.  Residues, W entries and every partial sum are integers
@@ -34,9 +28,13 @@
 //     Thread (x, r) owns lane x, row r, and every RnsVal intermediate is
 //     one register per thread; channelwise work (products, K*p adds,
 //     scales) is per thread, with the exact 32-bit Barrett reduction.
-//   * The independent products of a mixed addition (5, then 6) run as one
-//     batch: their 25 or 30 extension tiles spread over the 20 warps, and
-//     the batch shares three block barriers (6 per window, not 33).
+//   * Independent products run as one batch: their extension tiles spread
+//     over the 20 warps and the batch shares three block barriers.  K1
+//     batches the 5, then 6 products of a mixed addition (6 barriers per
+//     window).  K2's 15, then 18 Fp products go in batches of G2_NB, whole
+//     Karatsuba triples, each batch followed by its triples' subs (12
+//     barriers per window); products consume no K*p row, so the subs still
+//     take the rows in the reference's order.
 //   * The warp that computes an extension tile also finishes its 8 targets
 //     x 8 lanes in registers (reduction, r', xi2, the Shenoy-Kumaresan
 //     alpha on the m_r target), so nothing else waits on a barrier for it.
@@ -44,11 +42,12 @@
 //     per SM x SMs) loops over 8-lane tiles, and each block loads the W
 //     tables, already in A-fragment order (ops/fold_kernels.py
 //     ext_fragments_np), into shared memory once.
-// What bounds it now (scripts/probe_torch_k1_parts.py, PERF.md): not the
-// tensor cores (double FMAs in place of the mma steps change the time by a
+// What bounds them now (scripts/probe_torch_fold_parts.py, PERF.md): not the
+// tensor cores (double FMAs in place of the mma steps change K1's time by a
 // few percent) but the integer work and latency of the channelwise stages
-// and of the extension epilogues, with 5-10 of the 20 warps taking a
-// second extension tile in each batch while the rest wait at the barrier.
+// and of the extension epilogues, with part of the 20 warps taking one
+// extension tile more than the rest in each stage while those wait at the
+// barrier.
 // The K of every sub/neg is NOT derived here: the host replays the
 // reference bookkeeping (ops/fold_kernels.py fold_schedule) and passes the
 // K*p residues as a table consumed in call order, so the residues equal the
@@ -71,132 +70,13 @@ constexpr int PC = 80;        // all rows: Hi block [40, 80) = B' (35) + m_r + 4
 constexpr int KB = 35;        // channels per base
 constexpr int NT = KB + 1;    // extension targets (a base plus m_r)
 constexpr int ROW_MR = PB + KB;  // padded row of m_r (75)
-constexpr int TL = 4;         // lanes per block
-constexpr int THREADS = TL * PC;
-
 // Constant block written by kernel_consts_np (uint32 words, in this order).
 struct Consts {
   uint32_t m[PC], mu[PC], kappa[PC], minv[PC], ifac2[PC], mpmod[PC];
-  uint32_t W1[KB * NT];  // [B source i][Hi target t]: ((M/m_i) p) mod m_t
-  uint32_t W2[KB * NT];  // [B' source j][target t: B 0..34, m_r 35]: (M'/m'_j) mod m_t
   uint32_t mr, mpinv_mr;
 };
 
-struct Smem {
-  uint32_t W1[KB * NT];
-  uint32_t W2[KB * NT];
-  uint32_t xi[KB][TL];
-  uint32_t xi2[KB][TL];
-  uint32_t alpha[TL];
-  int flag[TL];
-};
-
-// Per-thread context: this thread's row constants and the K*p schedule.
-struct Ctx {
-  int r, x;
-  uint32_t m, mu, kappa, minv, ifac2, mpmod, mr, mpinv_mr;
-  bool isB, isHi, isMr;
-  const int* kp;  // (num_K, 80) K*p residues, consumed in call order
-  int kidx;
-  Smem* s;
-
-  __device__ __forceinline__ uint32_t mod(uint32_t t) const {
-    // exact for every uint32 t: q is floor(t/m) or one less
-    uint32_t q = __umulhi(t, mu);
-    uint32_t v = t - q * m;
-    return v >= m ? v - m : v;
-  }
-  __device__ __forceinline__ uint32_t add(uint32_t a, uint32_t b) const {
-    uint32_t v = a + b;
-    return v >= m ? v - m : v;
-  }
-  __device__ __forceinline__ uint32_t next_kp() {
-    return (uint32_t)__ldg(kp + (kidx++) * PC + r);
-  }
-  // RnsVal.__sub__: a - b + K*p, canonical
-  __device__ __forceinline__ uint32_t sub(uint32_t a, uint32_t b) {
-    int v = (int)a - (int)b + (int)next_kp();
-    if (v >= (int)m) v -= (int)m;
-    if (v < 0) v += (int)m;
-    return (uint32_t)v;
-  }
-  // RnsVal.neg: K*p - a, canonical
-  __device__ __forceinline__ uint32_t neg(uint32_t a) {
-    int v = (int)next_kp() - (int)a;
-    if (v >= (int)m) v -= (int)m;
-    if (v < 0) v += (int)m;
-    return (uint32_t)v;
-  }
-  __device__ __forceinline__ uint32_t scale(uint32_t a, uint32_t k) const {
-    return mod(a * k);  // a, k < 2^12
-  }
-
-  // One RNS Montgomery multiply (the reference's _rns_mul_block for this
-  // thread's channel).  Every thread of the block must call it together.
-  __device__ __forceinline__ uint32_t mul(uint32_t a, uint32_t b) {
-    uint32_t t = mod(a * b);
-    if (isB) s->xi[r][x] = mod(t * kappa);
-    __syncthreads();
-    uint32_t res = 0, ext = 0;
-    if (isHi) {  // extension B -> B' + m_r, then r' = (t + q^p) M^-1
-      const int tg = r - PB;
-      uint32_t acc = 0;
-#pragma unroll 7
-      for (int i = 0; i < KB; ++i) acc += s->xi[i][x] * s->W1[i * NT + tg];
-      uint32_t sv = add(t, mod(acc));
-      res = mod(sv * minv);
-      if (!isMr) s->xi2[tg][x] = mod(res * ifac2);
-    }
-    __syncthreads();
-    if (isB || isMr) {  // exact extension B' -> B + m_r
-      const int tg = isMr ? KB : r;
-      uint32_t acc = 0;
-#pragma unroll 7
-      for (int j = 0; j < KB; ++j) acc += s->xi2[j][x] * s->W2[j * NT + tg];
-      ext = mod(acc);
-      if (isMr) {  // Shenoy-Kumaresan count alpha' = (ext_mr - r'_mr) M'^-1
-        int d = (int)ext - (int)res;
-        if (d < 0) d += (int)m;
-        s->alpha[x] = mod((uint32_t)d * mpinv_mr);
-      }
-    }
-    __syncthreads();
-    if (isB) {
-      uint32_t corr = mod(s->alpha[x] * mpmod);
-      int v = (int)ext - (int)corr;
-      if (v < 0) v += (int)m;
-      res = (uint32_t)v;
-    }
-    return res;
-  }
-};
-
-__device__ __forceinline__ void init_ctx(Ctx& c, const Consts* K, const int* kp, Smem* s) {
-  c.x = threadIdx.x;
-  c.r = threadIdx.y;
-  const int r = c.r;
-  c.m = K->m[r];
-  c.mu = K->mu[r];
-  c.kappa = K->kappa[r];
-  c.minv = K->minv[r];
-  c.ifac2 = K->ifac2[r];
-  c.mpmod = K->mpmod[r];
-  c.mr = K->mr;
-  c.mpinv_mr = K->mpinv_mr;
-  c.isB = r < KB;
-  c.isHi = r >= PB && r <= ROW_MR;
-  c.isMr = r == ROW_MR;
-  c.kp = kp;
-  c.kidx = 0;
-  c.s = s;
-  const int tid = r * TL + c.x;
-  for (int i = tid; i < KB * NT; i += THREADS) {
-    s->W1[i] = K->W1[i];
-    s->W2[i] = K->W2[i];
-  }
-}
-
-// -------------------------------------- the tensor-core multiply (K1, K3)
+// ------------------------------------------------------ the RNS multiply
 constexpr int TC_LANES = 8;                // lanes per block
 constexpr int TC_THREADS = TC_LANES * PC;  // 640: warp w holds rows 4w..4w+3
 constexpr int TC_WARPS = TC_THREADS / 32;
@@ -206,18 +86,21 @@ constexpr int EXT_TILES = EXT_T / 8;
 constexpr int EXT_KSTEPS = EXT_S / 4;
 constexpr int FRAG = 32;                   // an A fragment: one double per lane
 constexpr int W_FRAGS = EXT_TILES * EXT_KSTEPS * FRAG;
-constexpr int NMAX = 6;                    // products per batched multiply (G1: 5, then 6)
+constexpr int NMAX = 6;                    // products per batch of K1 and K3 (G1: 5, then 6)
+constexpr int G2_NB = 9;                   // products per batch of K2: three Karatsuba triples
 
-// Shared memory of a block (dynamic, 74916 bytes: two blocks fit an SM).
-// Index j is the product of a batch.
+// Shared memory of a block, for batches of up to NB products (dynamic:
+// 74916 bytes at NB = 6, 100356 at NB = 9; two blocks fit an SM either
+// way).  Index j is the product of a batch.
+template <int NB>
 struct TcSmem {
-  double W[2][W_FRAGS];                 // W1, W2 in A-fragment order [tile][k-step][lane]
-  double xi[NMAX][TC_LANES][EXT_S];     // ext1 sources [lane][B row]; row 35 holds 0
-  double xi2[NMAX][TC_LANES][EXT_S];    // ext2 sources [lane][Hi-local row]; m_r holds 0
-  uint32_t t[NMAX][EXT_T][TC_LANES];    // the Hi rows' products a b, unreduced
-  uint32_t res[NMAX][EXT_T][TC_LANES];  // r' on the Hi rows
-  uint32_t ext[NMAX][EXT_T][TC_LANES];  // ext2 on the B rows
-  uint32_t alpha[NMAX][TC_LANES];
+  double W[2][W_FRAGS];               // W1, W2 in A-fragment order [tile][k-step][lane]
+  double xi[NB][TC_LANES][EXT_S];     // ext1 sources [lane][B row]; row 35 holds 0
+  double xi2[NB][TC_LANES][EXT_S];    // ext2 sources [lane][Hi-local row]; m_r holds 0
+  uint32_t t[NB][EXT_T][TC_LANES];    // the Hi rows' products a b, unreduced
+  uint32_t res[NB][EXT_T][TC_LANES];  // r' on the Hi rows
+  uint32_t ext[NB][EXT_T][TC_LANES];  // ext2 on the B rows
+  uint32_t alpha[NB][TC_LANES];
   int flag[TC_LANES];
   uint32_t m1[EXT_T], mu1[EXT_T], minv1[EXT_T], ifac21[EXT_T];  // ext1 targets (Hi rows)
   uint32_t m2[EXT_T], mu2[EXT_T];  // ext2 targets: B rows 0..34, m_r at 35
@@ -252,14 +135,15 @@ __device__ __forceinline__ void ext_tile(const double* W, const double (*src)[EX
   for (int k = 0; k < EXT_KSTEPS; ++k) dmma(c0, c1, w[k * FRAG], b[4 * k]);
 }
 
-// Per-thread context of the tensor-core multiply: this thread's row
-// constants, its warp and lane, and the K*p schedule.
+// Per-thread context of the multiply: this thread's row constants, its
+// warp and lane, the K*p schedule and the block's buffers for NB products.
+template <int NB>
 struct TcCtx {
   int r, x, warp, lane;
   uint32_t m, mu, kappa, mpmod;
   const int* kp;  // (num_K, 80) K*p residues, consumed in call order
   int kidx;
-  TcSmem* s;
+  TcSmem<NB>* s;
 
   __device__ __forceinline__ uint32_t mod(uint32_t t) const { return mod_by(t, m, mu); }
   __device__ __forceinline__ uint32_t add(uint32_t a, uint32_t b) const {
@@ -335,7 +219,7 @@ struct TcCtx {
   // together.
   template <int N>
   __device__ __forceinline__ void mul_many(const uint32_t* a, const uint32_t* b, uint32_t* out) {
-    static_assert(N <= NMAX, "batch larger than the shared buffers");
+    static_assert(N <= NB, "batch larger than the shared buffers");
 #pragma unroll
     for (int j = 0; j < N; ++j) {
       const uint32_t ab = a[j] * b[j];  // < 2^24
@@ -363,8 +247,9 @@ struct TcCtx {
   }
 };
 
-__device__ __forceinline__ void init_tc(TcCtx& c, const Consts* K, const double* wf,
-                                        const int* kp, TcSmem* s) {
+template <int NB>
+__device__ __forceinline__ void init_tc(TcCtx<NB>& c, const Consts* K, const double* wf,
+                                        const int* kp, TcSmem<NB>* s) {
   c.x = threadIdx.x;
   c.r = threadIdx.y;
   const int tid = c.r * TC_LANES + c.x;
@@ -393,7 +278,7 @@ __device__ __forceinline__ void init_tc(TcCtx& c, const Consts* K, const double*
 // ---------------------------------------------------------------- Fp ops
 struct G1Ops {
   using V = uint32_t;
-  TcCtx& c;
+  TcCtx<NMAX>& c;
   uint32_t b3;
   __device__ V add(V a, V b) { return c.add(a, b); }
   __device__ V sub(V a, V b) { return c.sub(a, b); }
@@ -416,7 +301,7 @@ struct Fp2 {
 
 struct G2Ops {
   using V = Fp2;
-  Ctx& c;
+  TcCtx<G2_NB>& c;
   uint32_t b3c;
   __device__ V add(V a, V b) { return {c.add(a.c0, b.c0), c.add(a.c1, b.c1)}; }
   __device__ V sub(V a, V b) {
@@ -437,21 +322,30 @@ struct G2Ops {
     return {c.scale(d, b3c), c.scale(s, b3c)};
   }
   __device__ V scale3(V a) { return {c.scale(a.c0, 3), c.scale(a.c1, 3)}; }
+  // N Fp2 products, G2_NB / 3 at a time: the Karatsuba triples of a chunk
+  // run as one batched multiply, then the chunk's subs.  Products consume
+  // no K*p row, so the subs take the rows in the reference's order.
   template <int N>
   __device__ void mul_many(const V* a, const V* b, V* out) {
-    uint32_t t[3 * N];
+    constexpr int M = N < G2_NB / 3 ? N : G2_NB / 3;
+    uint32_t x[3 * M], y[3 * M], t[3 * M];
 #pragma unroll
-    for (int i = 0; i < N; ++i) {
-      t[3 * i] = c.mul(a[i].c0, b[i].c0);
-      t[3 * i + 1] = c.mul(a[i].c1, b[i].c1);
-      t[3 * i + 2] = c.mul(c.add(a[i].c0, a[i].c1), c.add(b[i].c0, b[i].c1));
+    for (int i = 0; i < M; ++i) {
+      x[3 * i] = a[i].c0;
+      y[3 * i] = b[i].c0;
+      x[3 * i + 1] = a[i].c1;
+      y[3 * i + 1] = b[i].c1;
+      x[3 * i + 2] = c.add(a[i].c0, a[i].c1);
+      y[3 * i + 2] = c.add(b[i].c0, b[i].c1);
     }
+    c.template mul_many<3 * M>(x, y, t);
 #pragma unroll
-    for (int i = 0; i < N; ++i) {
+    for (int i = 0; i < M; ++i) {
       out[i].c0 = c.sub(t[3 * i], t[3 * i + 1]);
       const uint32_t u = c.sub(t[3 * i + 2], t[3 * i]);
       out[i].c1 = c.sub(u, t[3 * i + 1]);
     }
+    if constexpr (N > M) mul_many<N - M>(a + M, b + M, out + M);
   }
 };
 
@@ -484,15 +378,8 @@ __device__ __forceinline__ void point_add_mixed(Ops& o, V X1, V Y1, V Z1, V X2, 
 
 // Per-lane identity flag: every B row of the given tiles exactly zero.
 // `nonzero` is this thread's "some tile is nonzero here" bit.
-__device__ __forceinline__ bool lane_is_sentinel(Ctx& c, bool nonzero) {
-  if (c.r == 0) c.s->flag[c.x] = 0;
-  __syncthreads();
-  if (c.isB && nonzero) c.s->flag[c.x] = 1;
-  __syncthreads();
-  return c.s->flag[c.x] == 0;
-}
-
-__device__ __forceinline__ bool lane_is_sentinel(TcCtx& c, bool nonzero) {
+template <int NB>
+__device__ __forceinline__ bool lane_is_sentinel(TcCtx<NB>& c, bool nonzero) {
   if (c.r == 0) c.s->flag[c.x] = 0;
   __syncthreads();
   if (c.r < KB && nonzero) c.s->flag[c.x] = 1;
@@ -500,7 +387,7 @@ __device__ __forceinline__ bool lane_is_sentinel(TcCtx& c, bool nonzero) {
   return c.s->flag[c.x] == 0;
 }
 
-// K3 and K1 are persistent: blockIdx.x walks the work units (K1: one
+// The kernels are persistent: blockIdx.x walks the work units (K1, K2: one
 // 8-lane tile; K3: NMAX consecutive tiles, one batched multiply) with
 // stride gridDim.x.  Every thread of a block takes the same units, so the
 // barriers stay uniform.
@@ -509,8 +396,8 @@ extern __shared__ __align__(16) unsigned char tc_smem[];
 __global__ void __launch_bounds__(TC_THREADS, 2) rns_mul_kernel(
     const int* __restrict__ xs, const int* __restrict__ ys, int* __restrict__ out,
     const Consts* __restrict__ K, const double* __restrict__ wf, int lanes) {
-  TcSmem& s = *reinterpret_cast<TcSmem*>(tc_smem);
-  TcCtx c;
+  TcSmem<NMAX>& s = *reinterpret_cast<TcSmem<NMAX>*>(tc_smem);
+  TcCtx<NMAX> c;
   init_tc(c, K, wf, nullptr, &s);
   __syncthreads();
   const int units = (lanes + NMAX * TC_LANES - 1) / (NMAX * TC_LANES);
@@ -538,8 +425,8 @@ __global__ void __launch_bounds__(TC_THREADS, 2) fold_g1_kernel(
     int* __restrict__ ox, int* __restrict__ oy, int* __restrict__ oz,
     const int* __restrict__ kp, const Consts* __restrict__ K, const double* __restrict__ wf,
     int lanes, int b3) {
-  TcSmem& s = *reinterpret_cast<TcSmem*>(tc_smem);
-  TcCtx c;
+  TcSmem<NMAX>& s = *reinterpret_cast<TcSmem<NMAX>*>(tc_smem);
+  TcCtx<NMAX> c;
   init_tc(c, K, wf, kp, &s);
   G1Ops o{c, (uint32_t)b3};
   const int tiles = (lanes + TC_LANES - 1) / TC_LANES;
@@ -569,41 +456,46 @@ __global__ void __launch_bounds__(TC_THREADS, 2) fold_g1_kernel(
   }
 }
 
-struct G2Ptrs {
-  const int* in[10];  // X0 X1 Y0 Y1 Z0 Z1 | x0 x1 y0 y1
-  int* out[6];
-};
-
-__global__ void __launch_bounds__(THREADS) fold_g2_kernel(G2Ptrs P, const int* __restrict__ sg,
-                                                          const int* __restrict__ kp,
-                                                          const Consts* __restrict__ K,
-                                                          int lanes, int b3c) {
-  __shared__ Smem s;
-  Ctx c;
-  init_ctx(c, K, kp, &s);
-  const int lane = blockIdx.x * TL + c.x;
-  const bool valid = lane < lanes;
-  const size_t idx = (size_t)c.r * lanes + lane;
-  uint32_t v[10];
-#pragma unroll
-  for (int i = 0; i < 10; ++i) v[i] = valid ? (uint32_t)P.in[i][idx] : 0u;
-  const bool neg_sign = valid && sg[lane] == 1;
-  const bool inf = lane_is_sentinel(c, (v[6] | v[7] | v[8] | v[9]) != 0u);
+// K2 reads and writes (80, 2, lanes) tensors: component 1 of row r, lane
+// l sits `lanes` words after component 0, at (2 r) lanes + l.
+__global__ void __launch_bounds__(TC_THREADS, 2) fold_g2_kernel(
+    const int* __restrict__ ax, const int* __restrict__ ay, const int* __restrict__ az,
+    const int* __restrict__ qx, const int* __restrict__ qy, const int* __restrict__ sg,
+    int* __restrict__ ox, int* __restrict__ oy, int* __restrict__ oz,
+    const int* __restrict__ kp, const Consts* __restrict__ K, const double* __restrict__ wf,
+    int lanes, int b3c) {
+  TcSmem<G2_NB>& s = *reinterpret_cast<TcSmem<G2_NB>*>(tc_smem);
+  TcCtx<G2_NB> c;
+  init_tc(c, K, wf, kp, &s);
   G2Ops o{c, (uint32_t)b3c};
-  const Fp2 X1{v[0], v[1]}, Y1{v[2], v[3]}, Z1{v[4], v[5]};
-  const Fp2 X2{v[6], v[7]}, Y2{v[8], v[9]};
-  const Fp2 Yn = o.neg(Y2);
-  const Fp2 Ys = neg_sign ? Yn : Y2;
-  Fp2 X3, Y3, Z3;
-  point_add_mixed(o, X1, Y1, Z1, X2, Ys, X3, Y3, Z3);
-  if (valid) {
-    const uint32_t res[6] = {X3.c0, X3.c1, Y3.c0, Y3.c1, Z3.c0, Z3.c1};
-#pragma unroll
-    for (int i = 0; i < 6; ++i) P.out[i][idx] = (int)(inf ? v[i] : res[i]);
+  const int tiles = (lanes + TC_LANES - 1) / TC_LANES;
+  for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
+    c.kidx = 0;
+    const int lane = tile * TC_LANES + c.x;
+    const bool valid = lane < lanes;
+    const size_t i0 = (size_t)c.r * 2 * lanes + lane, i1 = i0 + lanes;
+    auto load = [&](const int* t) {
+      return valid ? Fp2{(uint32_t)t[i0], (uint32_t)t[i1]} : Fp2{0u, 0u};
+    };
+    const Fp2 X1 = load(ax), Y1 = load(ay), Z1 = load(az), X2 = load(qx), Y2 = load(qy);
+    const bool neg_sign = valid && sg[lane] == 1;
+    // identity sentinel BEFORE the sign flip, as in K1
+    const bool inf = lane_is_sentinel(c, (X2.c0 | X2.c1 | Y2.c0 | Y2.c1) != 0u);
+    const Fp2 Yn = o.neg(Y2);
+    const Fp2 Ys = neg_sign ? Yn : Y2;
+    Fp2 X3, Y3, Z3;
+    point_add_mixed(o, X1, Y1, Z1, X2, Ys, X3, Y3, Z3);
+    if (valid) {
+      const Fp2 X = inf ? X1 : X3, Y = inf ? Y1 : Y3, Z = inf ? Z1 : Z3;
+      ox[i0] = (int)X.c0;
+      ox[i1] = (int)X.c1;
+      oy[i0] = (int)Y.c0;
+      oy[i1] = (int)Y.c1;
+      oz[i0] = (int)Z.c0;
+      oz[i1] = (int)Z.c1;
+    }
   }
 }
-
-inline int blocks_for(int lanes) { return (lanes + TL - 1) / TL; }
 
 // Blocks of one full wave of a persistent kernel on the current device:
 // resident blocks per SM (occupancy API) x SMs, cached per device, after
@@ -611,17 +503,17 @@ inline int blocks_for(int lanes) { return (lanes + TL - 1) / TL; }
 struct Wave {
   int dev = -1, blocks = 0;
 };
-Wave g1_wave, mul_wave;
+Wave g1_wave, g2_wave, mul_wave;
 
 template <class Kern>
-int wave_blocks(Kern kern, Wave& w) {
+int wave_blocks(Kern kern, Wave& w, int smem) {
   int dev = 0;
   cudaGetDevice(&dev);
   if (w.dev != dev) {
     int sms = 0, per_sm = 0;
-    cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)sizeof(TcSmem));
+    cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-    cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kern, TC_THREADS, sizeof(TcSmem));
+    cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kern, TC_THREADS, smem);
     w.blocks = sms * (per_sm > 0 ? per_sm : 1);
     w.dev = dev;
   }
@@ -629,6 +521,8 @@ int wave_blocks(Kern kern, Wave& w) {
 }
 
 inline int tc_grid(int wave, int units) { return units < wave ? units : wave; }
+
+constexpr int SMEM = sizeof(TcSmem<NMAX>), G2_SMEM = sizeof(TcSmem<G2_NB>);
 
 }  // namespace
 
@@ -641,8 +535,8 @@ extern "C" int bmt_rns_mul(const int* xs, const int* ys, int* out, const void* c
                            const void* wf, int lanes, void* stream) {
   if (lanes <= 0) return 0;
   const int units = (lanes + NMAX * TC_LANES - 1) / (NMAX * TC_LANES);
-  const int grid = tc_grid(wave_blocks(rns_mul_kernel, mul_wave), units);
-  rns_mul_kernel<<<grid, dim3(TC_LANES, PC), sizeof(TcSmem), (cudaStream_t)stream>>>(
+  const int grid = tc_grid(wave_blocks(rns_mul_kernel, mul_wave, SMEM), units);
+  rns_mul_kernel<<<grid, dim3(TC_LANES, PC), SMEM, (cudaStream_t)stream>>>(
       xs, ys, out, (const Consts*)consts, (const double*)wf, lanes);
   return (int)cudaGetLastError();
 }
@@ -652,28 +546,33 @@ extern "C" int bmt_fold_g1(const int* ax, const int* ay, const int* az, const in
                            const int* kp, const void* consts, const void* wf, int lanes,
                            int b3, void* stream) {
   if (lanes <= 0) return 0;
-  const int grid = tc_grid(wave_blocks(fold_g1_kernel, g1_wave), (lanes + TC_LANES - 1) / TC_LANES);
-  fold_g1_kernel<<<grid, dim3(TC_LANES, PC), sizeof(TcSmem), (cudaStream_t)stream>>>(
+  const int grid = tc_grid(wave_blocks(fold_g1_kernel, g1_wave, SMEM), (lanes + TC_LANES - 1) / TC_LANES);
+  fold_g1_kernel<<<grid, dim3(TC_LANES, PC), SMEM, (cudaStream_t)stream>>>(
       ax, ay, az, qx, qy, sg, ox, oy, oz, kp, (const Consts*)consts, (const double*)wf, lanes,
       b3);
   return (int)cudaGetLastError();
 }
 
-// Lanes that one full wave of K1's (8-lane tiles) or K3's (NMAX tiles per
-// unit) persistent blocks covers.
-extern "C" int bmt_fold_g1_wave_lanes() { return wave_blocks(fold_g1_kernel, g1_wave) * TC_LANES; }
-extern "C" int bmt_rns_mul_wave_lanes() {
-  return wave_blocks(rns_mul_kernel, mul_wave) * NMAX * TC_LANES;
+// The G2 window: every point argument is an (80, 2, lanes) tensor.
+extern "C" int bmt_fold_g2(const int* ax, const int* ay, const int* az, const int* qx,
+                           const int* qy, const int* sg, int* ox, int* oy, int* oz,
+                           const int* kp, const void* consts, const void* wf, int lanes,
+                           int b3c, void* stream) {
+  if (lanes <= 0) return 0;
+  const int grid =
+      tc_grid(wave_blocks(fold_g2_kernel, g2_wave, G2_SMEM), (lanes + TC_LANES - 1) / TC_LANES);
+  fold_g2_kernel<<<grid, dim3(TC_LANES, PC), G2_SMEM, (cudaStream_t)stream>>>(
+      ax, ay, az, qx, qy, sg, ox, oy, oz, kp, (const Consts*)consts, (const double*)wf, lanes,
+      b3c);
+  return (int)cudaGetLastError();
 }
 
-extern "C" int bmt_fold_g2(const int* a0, const int* a1, const int* a2, const int* a3,
-                           const int* a4, const int* a5, const int* q0, const int* q1,
-                           const int* q2, const int* q3, const int* sg, int* o0, int* o1,
-                           int* o2, int* o3, int* o4, int* o5, const int* kp,
-                           const void* consts, int lanes, int b3c, void* stream) {
-  if (lanes <= 0) return 0;
-  G2Ptrs P{{a0, a1, a2, a3, a4, a5, q0, q1, q2, q3}, {o0, o1, o2, o3, o4, o5}};
-  fold_g2_kernel<<<blocks_for(lanes), dim3(TL, PC), 0, (cudaStream_t)stream>>>(
-      P, sg, kp, (const Consts*)consts, lanes, b3c);
-  return (int)cudaGetLastError();
+// Lanes that one full wave of K1's or K2's (8-lane tiles) or K3's (NMAX
+// tiles per unit) persistent blocks covers.
+extern "C" int bmt_fold_g1_wave_lanes() { return wave_blocks(fold_g1_kernel, g1_wave, SMEM) * TC_LANES; }
+extern "C" int bmt_fold_g2_wave_lanes() {
+  return wave_blocks(fold_g2_kernel, g2_wave, G2_SMEM) * TC_LANES;
+}
+extern "C" int bmt_rns_mul_wave_lanes() {
+  return wave_blocks(rns_mul_kernel, mul_wave, SMEM) * NMAX * TC_LANES;
 }

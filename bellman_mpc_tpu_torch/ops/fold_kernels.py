@@ -46,8 +46,8 @@ G2_CAP = 256
 # formula, in csrc/fold_kernels.cu's order); checked against fold_schedule
 G1_NUM_K = 5
 G2_NUM_K = 45
-# K1/K3 base extensions on the tensor cores: targets padded to tiles of 8,
-# sources to k-steps of 4 (csrc/fold_kernels.cu EXT_T, EXT_S)
+# base extensions on the tensor cores: targets padded to tiles of 8, sources
+# to k-steps of 4 (csrc/fold_kernels.cu EXT_T, EXT_S)
 EXT_T = 40
 EXT_S = 36
 
@@ -314,11 +314,9 @@ def _kp_rows(f, ks: Tuple[int, ...], device) -> torch.Tensor:
 def kernel_consts_np(f) -> np.ndarray:
     """The kernels' constant block (uint32 words, see `Consts` in
     csrc/fold_kernels.cu): per padded row m, floor(2^32/m), kappa, M^-1
-    (Hi rows), (M'/m'_j)^-1 (B' rows), M' mod m (B rows); then W1 and W2
-    transposed to [source][target] (read by K2's multiply only; K1 and K3
-    take them from `ext_fragments_np`); then m_r and M'^-1 mod m_r."""
+    (Hi rows), (M'/m'_j)^-1 (B' rows), M' mod m (B rows); then m_r and
+    M'^-1 mod m_r.  The W tables go separately, as `ext_fragments_np`."""
     c = pad_consts(f)
-    k = f.k
     m = c["m_pad"]
     mu = np.asarray([min((1 << 32) // int(x), (1 << 32) - 1) for x in m], np.int64)
     minv = np.zeros(PAD_C, np.int64)
@@ -327,11 +325,9 @@ def kernel_consts_np(f) -> np.ndarray:
     ifac2[PAD_B:] = c["ifac2_hi"]
     mpmod = np.zeros(PAD_C, np.int64)
     mpmod[:PAD_B] = c["mp_mod_b"]
-    W1T = f.W1_np.T.reshape(-1)  # (k sources, k+1 targets)
-    W2T = f.W2_np.T.reshape(-1)
-    words = np.concatenate([m, mu, c["kappa"], minv, ifac2, mpmod, W1T, W2T,
+    words = np.concatenate([m, mu, c["kappa"], minv, ifac2, mpmod,
                             np.asarray([f.mr, f.mpinv_mr], np.int64)])
-    assert words.shape[0] == 6 * PAD_C + 2 * k * (k + 1) + 2
+    assert words.shape[0] == 6 * PAD_C + 2
     return words.astype(np.uint32).view(np.int32)
 
 
@@ -379,18 +375,24 @@ def fold_wave_lanes() -> int:
     return int(load().bmt_fold_g1_wave_lanes())
 
 
+def fold_g2_wave_lanes() -> int:
+    """Lanes that one full wave of K2's persistent blocks covers on the
+    current CUDA device (blocks per SM x SMs x 8 lanes)."""
+    return int(load().bmt_fold_g2_wave_lanes())
+
+
 def rns_mul_wave_lanes() -> int:
     """Lanes that one full wave of K3's persistent blocks covers on the
     current CUDA device (blocks per SM x SMs x 6 tiles x 8 lanes)."""
     return int(load().bmt_rns_mul_wave_lanes())
 
 
-def _check_tiles(tiles, lanes: int, device) -> None:
+def _check_tiles(tiles, shape, device) -> None:
     for t in tiles:
         if t.device != device or t.dtype != torch.int32 or not t.is_contiguous():
             raise ValueError("fold kernels take contiguous int32 tensors on one CUDA device")
-        if tuple(t.shape) != (PAD_C, lanes):
-            raise ValueError(f"expected a ({PAD_C}, {lanes}) tile, got {tuple(t.shape)}")
+        if tuple(t.shape) != shape:
+            raise ValueError(f"expected a {shape} tile, got {tuple(t.shape)}")
 
 
 # ----------------------------------------------------------------- wrappers
@@ -406,7 +408,7 @@ def rns_mul_many(f, xs: torch.Tensor, ys: torch.Tensor) -> torch.Tensor:
     if device_kind(xp) == "cpu":
         out = rns_mul_block_plain(f, xp, yp)
     else:
-        _check_tiles((xp, yp), n, xp.device)
+        _check_tiles((xp, yp), (PAD_C, n), xp.device)
         out = torch.empty_like(xp)
         lib = load()
         err = lib.bmt_rns_mul(xp.data_ptr(), yp.data_ptr(), out.data_ptr(),
@@ -438,7 +440,7 @@ def rns_fold_window(f, b3: int, acc_res, q, sgn, tab_bound, cap):
         outs = fold_window_g1_plain(f, b3, flat, qf[0], qf[1], sg, tab_n, cap)
     else:
         dev = sg.device
-        _check_tiles(flat + qf, lanes, dev)
+        _check_tiles(flat + qf, (PAD_C, lanes), dev)
         ks = fold_schedule(f, b3, tab_n, cap, False)
         assert len(ks) == G1_NUM_K, "G1 schedule does not match the kernel"
         kp = _kp_rows(f, ks, dev)
@@ -456,36 +458,28 @@ def rns_fold_window(f, b3: int, acc_res, q, sgn, tab_bound, cap):
 def rns_fold_window_g2(f, b3c: int, acc_res, q, sgn, tab_bound, cap):
     """K2: one G2 fold window; acc_res / q are tuples of (80, 2, *batch)
     padded residues (component axis 1); sgn (*batch) bool (the reference's
-    `rns_fold_window_pallas_g2`)."""
+    `rns_fold_window_pallas_g2`).  On the card the kernel reads and writes
+    these tensors in place of per-component copies, so they must be
+    contiguous."""
     shape = acc_res[0].shape
     lanes = int(np.prod(shape[2:]))
-    flat = []
-    for r in acc_res:
-        flat += [r[:, 0].reshape(PAD_C, lanes).contiguous(), r[:, 1].reshape(PAD_C, lanes).contiguous()]
-    qf = []
-    for r in q:
-        qf += [r[:, 0].reshape(PAD_C, lanes).contiguous(), r[:, 1].reshape(PAD_C, lanes).contiguous()]
     sg = sgn.reshape(lanes).to(torch.int32).contiguous()
     tab_n, cap = _tab_n(tab_bound), int(cap)
     if device_kind(sg) == "cpu":
-        outs = fold_window_g2_plain(f, b3c, flat, qf, sg, tab_n, cap)
-    else:
-        dev = sg.device
-        _check_tiles(flat + qf, lanes, dev)
-        ks = fold_schedule(f, b3c, tab_n, cap, True)
-        assert len(ks) == G2_NUM_K, "G2 schedule does not match the kernel"
-        kp = _kp_rows(f, ks, dev)
-        outs = tuple(torch.empty_like(flat[0]) for _ in range(6))
-        lib = load()
-        err = lib.bmt_fold_g2(
-            *(t.data_ptr() for t in flat + qf), sg.data_ptr(),
-            *(o.data_ptr() for o in outs), kp.data_ptr(),
-            _kernel_consts(f, dev).data_ptr(), lanes, b3c, stream(dev))
-        raise_on(err, "bmt_fold_g2")
-        launch_counts["rns_fold_window_g2"] += 1
-    batch = shape[2:]
-    return tuple(
-        torch.stack([outs[2 * i].reshape((PAD_C,) + tuple(batch)),
-                     outs[2 * i + 1].reshape((PAD_C,) + tuple(batch))], dim=1)
-        for i in range(3)
-    )
+        comps = lambda ts: [t[:, c].reshape(PAD_C, lanes) for t in ts for c in range(2)]
+        outs = fold_window_g2_plain(f, b3c, comps(acc_res), comps(q), sg, tab_n, cap)
+        return tuple(torch.stack([outs[2 * i], outs[2 * i + 1]], dim=1).reshape(shape) for i in range(3))
+    dev = sg.device
+    _check_tiles(tuple(acc_res) + tuple(q), tuple(shape), dev)
+    ks = fold_schedule(f, b3c, tab_n, cap, True)
+    assert len(ks) == G2_NUM_K, "G2 schedule does not match the kernel"
+    kp = _kp_rows(f, ks, dev)
+    outs = tuple(torch.empty_like(acc_res[0]) for _ in range(3))
+    lib = load()
+    err = lib.bmt_fold_g2(
+        *(t.data_ptr() for t in tuple(acc_res) + tuple(q)), sg.data_ptr(),
+        *(o.data_ptr() for o in outs), kp.data_ptr(), _kernel_consts(f, dev).data_ptr(),
+        _ext_fragments(f, dev).data_ptr(), lanes, b3c, stream(dev))
+    raise_on(err, "bmt_fold_g2")
+    launch_counts["rns_fold_window_g2"] += 1
+    return outs

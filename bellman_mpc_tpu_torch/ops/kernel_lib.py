@@ -109,8 +109,9 @@ ARGTYPES = {
     "bmt_mont_mul": [_P, _P, _P, ctypes.POINTER(ctypes.c_int), _I, _I, _I, _P],
     "bmt_rns_mul": [_P, _P, _P, _P, _P, _I, _P],
     "bmt_fold_g1": [_P] * 6 + [_P] * 3 + [_P, _P, _P, _I, _I, _P],
-    "bmt_fold_g2": [_P] * 11 + [_P] * 6 + [_P, _P, _I, _I, _P],
+    "bmt_fold_g2": [_P] * 6 + [_P] * 3 + [_P, _P, _P, _I, _I, _P],
     "bmt_fold_g1_wave_lanes": [],
+    "bmt_fold_g2_wave_lanes": [],
     "bmt_rns_mul_wave_lanes": [],
 }
 

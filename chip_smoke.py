@@ -13,10 +13,12 @@ Phases (each raises on failure; nothing is caught):
      card: K3 on (71, 16384) residues of random field elements and at a
      ragged lane count one past a full wave of persistent blocks, K1 at
      16384 lanes and K2 at 8192 lanes on encoded curve points with both
-     signs and (0, 0) sentinels mixed in, over three chained windows; K4
-     against LimbField.mul on Fr at the main path's (24, 16384), on Fp at a
-     ragged (36, 4099) and on the mock field, with inputs up to 2p; time K3
-     and K1 at 16384 lanes beside their plain versions;
+     signs and (0, 0) sentinels mixed in, over three chained windows, and
+     K2 over two windows one lane past a full wave of its persistent
+     blocks; K4 against LimbField.mul on Fr at the main path's (24, 16384),
+     on Fp at a ragged (36, 4099) and on the mock field, with inputs up to
+     2p; time K3 and K1 at 16384 lanes and K2 at 8192 lanes beside their
+     plain versions;
   4. setup: generate_random_parameters for MiMC-322 (constants seed 42),
      then BatchProver(msm_strategy="rns") with its padded RNS tables;
   5. prove_batch on B=16 random witnesses, launch counts checked (K4 once,
@@ -197,37 +199,44 @@ def check_kernels(device, rng: random.Random, g1_lanes=16384, g2_lanes=8192):
         g2 = rops.fp2
         pool = point_pool(group, hostg, npool, rng, device)
         tab_bound = rpt.limb_coord_to_rns(f, group.ops.f, group.ops.f.zeros((1,), device)).a
-        cap = Fraction(fk.G2_CAP if g2 else fk.G1_CAP)
-        acc = tuple(fk.rns_pad_rows(f, v.res) for v in rpt.point_identity(rops, (lanes,), device))
-        worst = 0
-        for _ in range(3):
-            acc_in = acc
-            q, sgn = gather_q(pool, lanes, rng, device)
-            if g2:
-                flat = lambda t: [t[:, 0].contiguous(), t[:, 1].contiguous()]
-                plain = fk.fold_window_g2_plain(
-                    f, rops.b3c, sum((flat(t) for t in acc), []), sum((flat(t) for t in q), []),
-                    sgn.to(torch.int32), fk._tab_n(tab_bound), int(cap))
-                plain = tuple(torch.stack([plain[2 * i], plain[2 * i + 1]], dim=1) for i in range(3))
-                got = fk.rns_fold_window_g2(f, rops.b3c, acc, q, sgn, tab_bound, cap)
-            else:
-                plain = fk.fold_window_g1_plain(f, rops.b3, acc, q[0], q[1], sgn.to(torch.int32),
-                                                fk._tab_n(tab_bound), int(cap))
-                got = fk.rns_fold_window(f, rops.b3, acc, q, sgn, tab_bound, cap)
-            torch.cuda.synchronize()
-            err = max_abs_err(got, plain)
-            worst = max(worst, err)
-            assert err == 0, f"{name} disagrees with its plain version: max_abs_err {err}"
-            acc = got
+        tab_n, cap = fk._tab_n(tab_bound), Fraction(fk.G2_CAP if g2 else fk.G1_CAP)
+        b = rops.b3c if g2 else rops.b3
+        fold = fk.rns_fold_window_g2 if g2 else fk.rns_fold_window
+
+        def plain(acc, q, sgn):
+            """The plain version, its output laid out as the kernel's."""
+            if not g2:
+                return fk.fold_window_g1_plain(f, b, acc, q[0], q[1], sgn.to(torch.int32), tab_n, int(cap))
+            comps = lambda ts: [t[:, c].contiguous() for t in ts for c in range(2)]
+            ref = fk.fold_window_g2_plain(f, b, comps(acc), comps(q), sgn.to(torch.int32), tab_n, int(cap))
+            return tuple(torch.stack([ref[2 * i], ref[2 * i + 1]], dim=1) for i in range(3))
+
+        def chained(n, windows):
+            """`windows` windows from the identity at n lanes, each checked;
+            returns the worst error and the last window's inputs."""
+            acc = tuple(fk.rns_pad_rows(f, v.res) for v in rpt.point_identity(rops, (n,), device))
+            worst = 0
+            for _ in range(windows):
+                acc_in = acc
+                q, sgn = gather_q(pool, n, rng, device)
+                want = plain(acc, q, sgn)
+                acc = fold(f, b, acc, q, sgn, tab_bound, cap)
+                torch.cuda.synchronize()
+                err = max_abs_err(acc, want)
+                worst = max(worst, err)
+                assert err == 0, f"{name} disagrees with its plain version at {n} lanes: max_abs_err {err}"
+            return worst, (acc_in, q, sgn)
+
+        worst, (acc_in, q, sgn) = chained(lanes, 3)
         results[name] = dict(lanes=lanes, max_abs_err=worst)
-        if not g2:  # K1 on the last window's inputs
-            sg32 = sgn.to(torch.int32)
-            kern = lambda: fk.rns_fold_window(f, rops.b3, acc_in, q, sgn, tab_bound, cap)
-            results[name].update(
-                ms=graph_time_ms(kern, 20), eager_ms=cuda_time_ms(kern, 20),
-                plain_ms=cuda_time_ms(lambda: fk.fold_window_g1_plain(
-                    f, rops.b3, acc_in, q[0], q[1], sg32, fk._tab_n(tab_bound), int(cap)), 3))
         log(f"{name}: bit-exact over 3 chained windows at {lanes} lanes")
+        if g2:  # one lane past a full wave: a block takes a second, ragged tile
+            nw = fk.fold_g2_wave_lanes() + 1
+            results[name].update(wave_lanes=nw, max_abs_err=max(worst, chained(nw, 2)[0]))
+            log(f"{name}: bit-exact over 2 chained windows at {nw} lanes")
+        kern = lambda: fold(f, b, acc_in, q, sgn, tab_bound, cap)
+        results[name].update(ms=graph_time_ms(kern, 20), eager_ms=cuda_time_ms(kern, 20),
+                             plain_ms=cuda_time_ms(lambda: plain(acc_in, q, sgn), 3))
     return results
 
 

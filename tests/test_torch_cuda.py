@@ -5,10 +5,10 @@ Imports neither jax nor the reference, so it runs on the GPU machine:
     python3 -m pytest --noconftest -q tests/test_torch_cuda.py
 
 Every test here needs a CUDA card and skips without one.  Lane counts that
-are not a multiple of K1/K3's 8-lane tile, K2's 4-lane tile or the limb
-multiply's 256-thread block exercise the ragged edge; "wave+1" is one lane
-past a full wave of the kernel's own persistent blocks (K1: 8-lane tiles,
-K3: units of 6 tiles), so one block takes a second, ragged unit.
+are not a multiple of the RNS kernels' 8-lane tile or the limb multiply's
+256-thread block exercise the ragged edge; "wave+1" is one lane past a full
+wave of the kernel's own persistent blocks (K1, K2: 8-lane tiles, K3: units
+of 6 tiles), so one block takes a second, ragged unit.
 """
 
 import random
@@ -94,18 +94,48 @@ def test_k1_chained_windows(dev, lanes):
         assert all(torch.equal(g, w) for g, w in zip(acc, want))
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("lanes", [13, 256])
-def test_k2_matches_plain(dev, lanes):
-    rng = random.Random(lanes + 2)
-    acc = tuple(torch.stack([_tile(rng, lanes, dev), _tile(rng, lanes, dev)], dim=1) for _ in range(3))
-    q = tuple(torch.stack([_tile(rng, lanes, dev, [1]), _tile(rng, lanes, dev, [1, 4])], dim=1)
-              for _ in range(2))
+def _fp2_tile(rng, lanes, dev, zero_cols=()):
+    return torch.stack([_tile(rng, lanes, dev, zero_cols), _tile(rng, lanes, dev, zero_cols)], dim=1)
+
+
+def _k2_inputs(rng, lanes, dev):
+    """Gathered points with the (0, 0) sentinel at the first and last lanes."""
+    q = tuple(_fp2_tile(rng, lanes, dev, [0, lanes - 1]) for _ in range(2))
     sg = torch.tensor([rng.randrange(2) == 1 for _ in range(lanes)], device=dev)
-    got = fk.rns_fold_window_g2(F, 12, acc, q, sg, Fraction(37), Fraction(fk.G2_CAP))
+    return q, sg
+
+
+def _k2_plain(acc, q, sg):
     flat = lambda ts: [t[:, c].contiguous() for t in ts for c in range(2)]
     want = fk.fold_window_g2_plain(F, 12, flat(acc), flat(q), sg.to(torch.int32), 37, fk.G2_CAP)
-    assert all(torch.equal(g, w) for g, w in zip(flat(got), want))
+    return tuple(torch.stack([want[2 * i], want[2 * i + 1]], dim=1) for i in range(3))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("lanes", TC_LANES)
+def test_k2_matches_plain(dev, lanes):
+    lanes = _lanes(lanes, fk.fold_g2_wave_lanes)
+    rng = random.Random(lanes + 2)
+    acc = tuple(_fp2_tile(rng, lanes, dev) for _ in range(3))
+    q, sg = _k2_inputs(rng, lanes, dev)
+    before = kernel_lib.launch_counts["rns_fold_window_g2"]
+    got = fk.rns_fold_window_g2(F, 12, acc, q, sg, Fraction(37), Fraction(fk.G2_CAP))
+    assert all(torch.equal(g, w) for g, w in zip(got, _k2_plain(acc, q, sg)))
+    assert kernel_lib.launch_counts["rns_fold_window_g2"] == before + 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("lanes", [257, "wave+1"])
+def test_k2_chained_windows(dev, lanes):
+    """Three windows, each kernel output the next window's accumulator."""
+    lanes = _lanes(lanes, fk.fold_g2_wave_lanes)
+    rng = random.Random(lanes + 4)
+    acc = want = tuple(_fp2_tile(rng, lanes, dev) for _ in range(3))
+    for _ in range(3):
+        q, sg = _k2_inputs(rng, lanes, dev)
+        acc = fk.rns_fold_window_g2(F, 12, acc, q, sg, Fraction(37), Fraction(fk.G2_CAP))
+        want = _k2_plain(want, q, sg)
+        assert all(torch.equal(g, w) for g, w in zip(acc, want))
 
 
 @pytest.mark.cuda
@@ -114,6 +144,9 @@ def test_wrappers_reject_bad_tiles(dev):
     sg = torch.zeros(8, dtype=torch.bool, device=dev)
     with pytest.raises(ValueError):  # int64 tiles
         fk.rns_fold_window(F, 12, (x.long(),) * 3, (x, x), sg, Fraction(37), Fraction(128))
+    x2 = torch.zeros((fk.PAD_C, 8, 2), dtype=torch.int32, device=dev).transpose(1, 2)
+    with pytest.raises(ValueError):  # (80, 2, lanes) views K2 would have to copy
+        fk.rns_fold_window_g2(F, 12, (x2,) * 3, (x2,) * 2, sg, Fraction(37), Fraction(256))
 
 
 def _limbs(f, vals, dev):

@@ -103,3 +103,22 @@ def test_ext_tables_match_w():
         for s in range(fk.EXT_S // 4):
             assert np.array_equal(frag[:, t, s], W[:, 8 * t + lane // 4, 4 * s + lane % 4])
     assert k * (max(TF.moduli) - 1) ** 2 < 1 << 30
+
+
+def test_kernel_consts_layout():
+    """The kernels' constant block is `Consts` of csrc/fold_kernels.cu word
+    for word: per padded row m, floor(2^32 / m), kappa, M^-1, (M'/m'_j)^-1
+    and M' mod m, then m_r and M'^-1 mod m_r."""
+    words = fk.kernel_consts_np(TF).view(np.uint32).astype(np.int64)
+    assert words.shape == (6 * fk.PAD_C + 2,)
+    m, mu, kappa, minv, ifac2, mpmod = words[: 6 * fk.PAD_C].reshape(6, fk.PAD_C)
+    k, B = TF.k, fk.PAD_B
+    hi = B + np.arange(k + 1)  # B' rows, then m_r
+    assert np.array_equal(m[np.r_[np.arange(k), hi]], np.asarray(TF.moduli, np.int64))
+    assert np.all(np.delete(m, np.r_[np.arange(k), hi]) == 1)  # pad rows
+    assert np.array_equal(mu, np.minimum((1 << 32) // m, (1 << 32) - 1))
+    assert np.array_equal(kappa[:k], TF.kappa_np[:k]) and not kappa[k:].any()
+    assert np.array_equal(minv[hi], TF.minv_np[k:]) and not np.delete(minv, hi).any()
+    assert np.array_equal(ifac2[hi[:k]], TF.ifac2_np[k : 2 * k]) and not np.delete(ifac2, hi[:k]).any()
+    assert np.array_equal(mpmod[:k], TF.mp_mod_np[:k]) and not mpmod[k:].any()
+    assert list(words[6 * fk.PAD_C :]) == [TF.mr, TF.mpinv_mr]
