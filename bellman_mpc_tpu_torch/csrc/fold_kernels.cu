@@ -28,13 +28,13 @@
 //     Thread (x, r) owns lane x, row r, and every RnsVal intermediate is
 //     one register per thread; channelwise work (products, K*p adds,
 //     scales) is per thread, with the exact 32-bit Barrett reduction.
-//   * Independent products run as one batch: their extension tiles spread
-//     over the 20 warps and the batch shares three block barriers.  K1
-//     batches the 5, then 6 products of a mixed addition (6 barriers per
-//     window).  K2's 15, then 18 Fp products go in batches of G2_NB, whole
-//     Karatsuba triples, each batch followed by its triples' subs (12
-//     barriers per window); products consume no K*p row, so the subs still
-//     take the rows in the reference's order.
+//   * Independent products run as one batch of at most NMAX = 6: their
+//     extension tiles spread over the 20 warps and the batch shares three
+//     block barriers.  K1 batches the 5, then 6 products of a mixed addition
+//     (6 barriers per window).  K2's 15, then 18 Fp products go in batches
+//     of two whole Karatsuba triples, each batch followed by its triples'
+//     subs (18 barriers per window); products consume no K*p row, so the
+//     subs still take the rows in the reference's order.
 //   * The warp that computes an extension tile also finishes its 8 targets
 //     x 8 lanes in registers (reduction, r', xi2, the Shenoy-Kumaresan
 //     alpha on the m_r target), so nothing else waits on a barrier for it.
@@ -86,21 +86,18 @@ constexpr int EXT_TILES = EXT_T / 8;
 constexpr int EXT_KSTEPS = EXT_S / 4;
 constexpr int FRAG = 32;                   // an A fragment: one double per lane
 constexpr int W_FRAGS = EXT_TILES * EXT_KSTEPS * FRAG;
-constexpr int NMAX = 6;                    // products per batch of K1 and K3 (G1: 5, then 6)
-constexpr int G2_NB = 9;                   // products per batch of K2: three Karatsuba triples
+constexpr int NMAX = 6;                    // products per batch (G1: 5, then 6; G2: 2 triples)
 
-// Shared memory of a block, for batches of up to NB products (dynamic:
-// 74916 bytes at NB = 6, 100356 at NB = 9; two blocks fit an SM either
-// way).  Index j is the product of a batch.
-template <int NB>
+// Shared memory of a block (dynamic, 74916 bytes: two blocks fit an SM).
+// Index j is the product of a batch.
 struct TcSmem {
-  double W[2][W_FRAGS];               // W1, W2 in A-fragment order [tile][k-step][lane]
-  double xi[NB][TC_LANES][EXT_S];     // ext1 sources [lane][B row]; row 35 holds 0
-  double xi2[NB][TC_LANES][EXT_S];    // ext2 sources [lane][Hi-local row]; m_r holds 0
-  uint32_t t[NB][EXT_T][TC_LANES];    // the Hi rows' products a b, unreduced
-  uint32_t res[NB][EXT_T][TC_LANES];  // r' on the Hi rows
-  uint32_t ext[NB][EXT_T][TC_LANES];  // ext2 on the B rows
-  uint32_t alpha[NB][TC_LANES];
+  double W[2][W_FRAGS];                 // W1, W2 in A-fragment order [tile][k-step][lane]
+  double xi[NMAX][TC_LANES][EXT_S];     // ext1 sources [lane][B row]; row 35 holds 0
+  double xi2[NMAX][TC_LANES][EXT_S];    // ext2 sources [lane][Hi-local row]; m_r holds 0
+  uint32_t t[NMAX][EXT_T][TC_LANES];    // the Hi rows' products a b, unreduced
+  uint32_t res[NMAX][EXT_T][TC_LANES];  // r' on the Hi rows
+  uint32_t ext[NMAX][EXT_T][TC_LANES];  // ext2 on the B rows
+  uint32_t alpha[NMAX][TC_LANES];
   int flag[TC_LANES];
   uint32_t m1[EXT_T], mu1[EXT_T], minv1[EXT_T], ifac21[EXT_T];  // ext1 targets (Hi rows)
   uint32_t m2[EXT_T], mu2[EXT_T];  // ext2 targets: B rows 0..34, m_r at 35
@@ -136,14 +133,13 @@ __device__ __forceinline__ void ext_tile(const double* W, const double (*src)[EX
 }
 
 // Per-thread context of the multiply: this thread's row constants, its
-// warp and lane, the K*p schedule and the block's buffers for NB products.
-template <int NB>
+// warp and lane, the K*p schedule and the block's buffers.
 struct TcCtx {
   int r, x, warp, lane;
   uint32_t m, mu, kappa, mpmod;
   const int* kp;  // (num_K, 80) K*p residues, consumed in call order
   int kidx;
-  TcSmem<NB>* s;
+  TcSmem* s;
 
   __device__ __forceinline__ uint32_t mod(uint32_t t) const { return mod_by(t, m, mu); }
   __device__ __forceinline__ uint32_t add(uint32_t a, uint32_t b) const {
@@ -219,7 +215,7 @@ struct TcCtx {
   // together.
   template <int N>
   __device__ __forceinline__ void mul_many(const uint32_t* a, const uint32_t* b, uint32_t* out) {
-    static_assert(N <= NB, "batch larger than the shared buffers");
+    static_assert(N <= NMAX, "batch larger than the shared buffers");
 #pragma unroll
     for (int j = 0; j < N; ++j) {
       const uint32_t ab = a[j] * b[j];  // < 2^24
@@ -247,9 +243,8 @@ struct TcCtx {
   }
 };
 
-template <int NB>
-__device__ __forceinline__ void init_tc(TcCtx<NB>& c, const Consts* K, const double* wf,
-                                        const int* kp, TcSmem<NB>* s) {
+__device__ __forceinline__ void init_tc(TcCtx& c, const Consts* K, const double* wf,
+                                        const int* kp, TcSmem* s) {
   c.x = threadIdx.x;
   c.r = threadIdx.y;
   const int tid = c.r * TC_LANES + c.x;
@@ -278,7 +273,7 @@ __device__ __forceinline__ void init_tc(TcCtx<NB>& c, const Consts* K, const dou
 // ---------------------------------------------------------------- Fp ops
 struct G1Ops {
   using V = uint32_t;
-  TcCtx<NMAX>& c;
+  TcCtx& c;
   uint32_t b3;
   __device__ V add(V a, V b) { return c.add(a, b); }
   __device__ V sub(V a, V b) { return c.sub(a, b); }
@@ -301,7 +296,7 @@ struct Fp2 {
 
 struct G2Ops {
   using V = Fp2;
-  TcCtx<G2_NB>& c;
+  TcCtx& c;
   uint32_t b3c;
   __device__ V add(V a, V b) { return {c.add(a.c0, b.c0), c.add(a.c1, b.c1)}; }
   __device__ V sub(V a, V b) {
@@ -322,12 +317,12 @@ struct G2Ops {
     return {c.scale(d, b3c), c.scale(s, b3c)};
   }
   __device__ V scale3(V a) { return {c.scale(a.c0, 3), c.scale(a.c1, 3)}; }
-  // N Fp2 products, G2_NB / 3 at a time: the Karatsuba triples of a chunk
+  // N Fp2 products, NMAX / 3 at a time: the Karatsuba triples of a chunk
   // run as one batched multiply, then the chunk's subs.  Products consume
   // no K*p row, so the subs take the rows in the reference's order.
   template <int N>
   __device__ void mul_many(const V* a, const V* b, V* out) {
-    constexpr int M = N < G2_NB / 3 ? N : G2_NB / 3;
+    constexpr int M = N < NMAX / 3 ? N : NMAX / 3;
     uint32_t x[3 * M], y[3 * M], t[3 * M];
 #pragma unroll
     for (int i = 0; i < M; ++i) {
@@ -378,8 +373,7 @@ __device__ __forceinline__ void point_add_mixed(Ops& o, V X1, V Y1, V Z1, V X2, 
 
 // Per-lane identity flag: every B row of the given tiles exactly zero.
 // `nonzero` is this thread's "some tile is nonzero here" bit.
-template <int NB>
-__device__ __forceinline__ bool lane_is_sentinel(TcCtx<NB>& c, bool nonzero) {
+__device__ __forceinline__ bool lane_is_sentinel(TcCtx& c, bool nonzero) {
   if (c.r == 0) c.s->flag[c.x] = 0;
   __syncthreads();
   if (c.r < KB && nonzero) c.s->flag[c.x] = 1;
@@ -396,8 +390,8 @@ extern __shared__ __align__(16) unsigned char tc_smem[];
 __global__ void __launch_bounds__(TC_THREADS, 2) rns_mul_kernel(
     const int* __restrict__ xs, const int* __restrict__ ys, int* __restrict__ out,
     const Consts* __restrict__ K, const double* __restrict__ wf, int lanes) {
-  TcSmem<NMAX>& s = *reinterpret_cast<TcSmem<NMAX>*>(tc_smem);
-  TcCtx<NMAX> c;
+  TcSmem& s = *reinterpret_cast<TcSmem*>(tc_smem);
+  TcCtx c;
   init_tc(c, K, wf, nullptr, &s);
   __syncthreads();
   const int units = (lanes + NMAX * TC_LANES - 1) / (NMAX * TC_LANES);
@@ -425,8 +419,8 @@ __global__ void __launch_bounds__(TC_THREADS, 2) fold_g1_kernel(
     int* __restrict__ ox, int* __restrict__ oy, int* __restrict__ oz,
     const int* __restrict__ kp, const Consts* __restrict__ K, const double* __restrict__ wf,
     int lanes, int b3) {
-  TcSmem<NMAX>& s = *reinterpret_cast<TcSmem<NMAX>*>(tc_smem);
-  TcCtx<NMAX> c;
+  TcSmem& s = *reinterpret_cast<TcSmem*>(tc_smem);
+  TcCtx c;
   init_tc(c, K, wf, kp, &s);
   G1Ops o{c, (uint32_t)b3};
   const int tiles = (lanes + TC_LANES - 1) / TC_LANES;
@@ -464,8 +458,8 @@ __global__ void __launch_bounds__(TC_THREADS, 2) fold_g2_kernel(
     int* __restrict__ ox, int* __restrict__ oy, int* __restrict__ oz,
     const int* __restrict__ kp, const Consts* __restrict__ K, const double* __restrict__ wf,
     int lanes, int b3c) {
-  TcSmem<G2_NB>& s = *reinterpret_cast<TcSmem<G2_NB>*>(tc_smem);
-  TcCtx<G2_NB> c;
+  TcSmem& s = *reinterpret_cast<TcSmem*>(tc_smem);
+  TcCtx c;
   init_tc(c, K, wf, kp, &s);
   G2Ops o{c, (uint32_t)b3c};
   const int tiles = (lanes + TC_LANES - 1) / TC_LANES;
@@ -522,7 +516,7 @@ int wave_blocks(Kern kern, Wave& w, int smem) {
 
 inline int tc_grid(int wave, int units) { return units < wave ? units : wave; }
 
-constexpr int SMEM = sizeof(TcSmem<NMAX>), G2_SMEM = sizeof(TcSmem<G2_NB>);
+constexpr int SMEM = sizeof(TcSmem);
 
 }  // namespace
 
@@ -559,9 +553,8 @@ extern "C" int bmt_fold_g2(const int* ax, const int* ay, const int* az, const in
                            const int* kp, const void* consts, const void* wf, int lanes,
                            int b3c, void* stream) {
   if (lanes <= 0) return 0;
-  const int grid =
-      tc_grid(wave_blocks(fold_g2_kernel, g2_wave, G2_SMEM), (lanes + TC_LANES - 1) / TC_LANES);
-  fold_g2_kernel<<<grid, dim3(TC_LANES, PC), G2_SMEM, (cudaStream_t)stream>>>(
+  const int grid = tc_grid(wave_blocks(fold_g2_kernel, g2_wave, SMEM), (lanes + TC_LANES - 1) / TC_LANES);
+  fold_g2_kernel<<<grid, dim3(TC_LANES, PC), SMEM, (cudaStream_t)stream>>>(
       ax, ay, az, qx, qy, sg, ox, oy, oz, kp, (const Consts*)consts, (const double*)wf, lanes,
       b3c);
   return (int)cudaGetLastError();
@@ -570,9 +563,7 @@ extern "C" int bmt_fold_g2(const int* ax, const int* ay, const int* az, const in
 // Lanes that one full wave of K1's or K2's (8-lane tiles) or K3's (NMAX
 // tiles per unit) persistent blocks covers.
 extern "C" int bmt_fold_g1_wave_lanes() { return wave_blocks(fold_g1_kernel, g1_wave, SMEM) * TC_LANES; }
-extern "C" int bmt_fold_g2_wave_lanes() {
-  return wave_blocks(fold_g2_kernel, g2_wave, G2_SMEM) * TC_LANES;
-}
+extern "C" int bmt_fold_g2_wave_lanes() { return wave_blocks(fold_g2_kernel, g2_wave, SMEM) * TC_LANES; }
 extern "C" int bmt_rns_mul_wave_lanes() {
   return wave_blocks(rns_mul_kernel, mul_wave, SMEM) * NMAX * TC_LANES;
 }

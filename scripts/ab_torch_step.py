@@ -86,6 +86,8 @@ def worker(tree: str, device: str, mimc_rounds: int) -> int:
     dev = torch.device(device)
     cuda = dev.type == "cuda"
     sync = torch.cuda.synchronize if cuda else (lambda: None)
+    if not cuda:  # two workers' default thread pools starve each other on the CPU
+        torch.set_num_threads(1)
     t0 = time.perf_counter()
     if cuda:
         kl.build()
