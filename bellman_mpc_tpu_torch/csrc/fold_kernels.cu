@@ -500,14 +500,14 @@ struct Wave {
 Wave g1_wave, g2_wave, mul_wave;
 
 template <class Kern>
-int wave_blocks(Kern kern, Wave& w, int smem) {
+int wave_blocks(Kern kern, Wave& w) {
   int dev = 0;
   cudaGetDevice(&dev);
   if (w.dev != dev) {
     int sms = 0, per_sm = 0;
-    cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)sizeof(TcSmem));
     cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-    cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kern, TC_THREADS, smem);
+    cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kern, TC_THREADS, sizeof(TcSmem));
     w.blocks = sms * (per_sm > 0 ? per_sm : 1);
     w.dev = dev;
   }
@@ -515,8 +515,6 @@ int wave_blocks(Kern kern, Wave& w, int smem) {
 }
 
 inline int tc_grid(int wave, int units) { return units < wave ? units : wave; }
-
-constexpr int SMEM = sizeof(TcSmem);
 
 }  // namespace
 
@@ -529,8 +527,8 @@ extern "C" int bmt_rns_mul(const int* xs, const int* ys, int* out, const void* c
                            const void* wf, int lanes, void* stream) {
   if (lanes <= 0) return 0;
   const int units = (lanes + NMAX * TC_LANES - 1) / (NMAX * TC_LANES);
-  const int grid = tc_grid(wave_blocks(rns_mul_kernel, mul_wave, SMEM), units);
-  rns_mul_kernel<<<grid, dim3(TC_LANES, PC), SMEM, (cudaStream_t)stream>>>(
+  const int grid = tc_grid(wave_blocks(rns_mul_kernel, mul_wave), units);
+  rns_mul_kernel<<<grid, dim3(TC_LANES, PC), sizeof(TcSmem), (cudaStream_t)stream>>>(
       xs, ys, out, (const Consts*)consts, (const double*)wf, lanes);
   return (int)cudaGetLastError();
 }
@@ -540,8 +538,8 @@ extern "C" int bmt_fold_g1(const int* ax, const int* ay, const int* az, const in
                            const int* kp, const void* consts, const void* wf, int lanes,
                            int b3, void* stream) {
   if (lanes <= 0) return 0;
-  const int grid = tc_grid(wave_blocks(fold_g1_kernel, g1_wave, SMEM), (lanes + TC_LANES - 1) / TC_LANES);
-  fold_g1_kernel<<<grid, dim3(TC_LANES, PC), SMEM, (cudaStream_t)stream>>>(
+  const int grid = tc_grid(wave_blocks(fold_g1_kernel, g1_wave), (lanes + TC_LANES - 1) / TC_LANES);
+  fold_g1_kernel<<<grid, dim3(TC_LANES, PC), sizeof(TcSmem), (cudaStream_t)stream>>>(
       ax, ay, az, qx, qy, sg, ox, oy, oz, kp, (const Consts*)consts, (const double*)wf, lanes,
       b3);
   return (int)cudaGetLastError();
@@ -553,8 +551,8 @@ extern "C" int bmt_fold_g2(const int* ax, const int* ay, const int* az, const in
                            const int* kp, const void* consts, const void* wf, int lanes,
                            int b3c, void* stream) {
   if (lanes <= 0) return 0;
-  const int grid = tc_grid(wave_blocks(fold_g2_kernel, g2_wave, SMEM), (lanes + TC_LANES - 1) / TC_LANES);
-  fold_g2_kernel<<<grid, dim3(TC_LANES, PC), SMEM, (cudaStream_t)stream>>>(
+  const int grid = tc_grid(wave_blocks(fold_g2_kernel, g2_wave), (lanes + TC_LANES - 1) / TC_LANES);
+  fold_g2_kernel<<<grid, dim3(TC_LANES, PC), sizeof(TcSmem), (cudaStream_t)stream>>>(
       ax, ay, az, qx, qy, sg, ox, oy, oz, kp, (const Consts*)consts, (const double*)wf, lanes,
       b3c);
   return (int)cudaGetLastError();
@@ -562,8 +560,8 @@ extern "C" int bmt_fold_g2(const int* ax, const int* ay, const int* az, const in
 
 // Lanes that one full wave of K1's or K2's (8-lane tiles) or K3's (NMAX
 // tiles per unit) persistent blocks covers.
-extern "C" int bmt_fold_g1_wave_lanes() { return wave_blocks(fold_g1_kernel, g1_wave, SMEM) * TC_LANES; }
-extern "C" int bmt_fold_g2_wave_lanes() { return wave_blocks(fold_g2_kernel, g2_wave, SMEM) * TC_LANES; }
+extern "C" int bmt_fold_g1_wave_lanes() { return wave_blocks(fold_g1_kernel, g1_wave) * TC_LANES; }
+extern "C" int bmt_fold_g2_wave_lanes() { return wave_blocks(fold_g2_kernel, g2_wave) * TC_LANES; }
 extern "C" int bmt_rns_mul_wave_lanes() {
-  return wave_blocks(rns_mul_kernel, mul_wave, SMEM) * NMAX * TC_LANES;
+  return wave_blocks(rns_mul_kernel, mul_wave) * NMAX * TC_LANES;
 }

@@ -8,8 +8,9 @@ card.  The workers then take turns: in each round every checkout times one
 step (`BatchProver.step`, synchronised, host clock) and then its kernels,
 the base first in even rounds and the other checkout first in odd rounds,
 while the worker not being timed waits on its pipe.  Kernels: K1 and K2 on
-gathered table points (chip_smoke.fold_window_cases) and K3 on (71, 16384)
-random residues, each as its device time from CUDA graph replays
+gathered table points (chip_smoke.fold_window_cases), K3 on (71, 16384)
+random residues and K4 on (24, 16384) Fr limbs (chip_smoke.lazy_limbs),
+each as its device time from CUDA graph replays
 (chip_smoke.graph_time_ms) and as its eager time (chip_smoke.cuda_time_ms,
 which also carries the wrapper's Python).  Before any timing, both
 checkouts must give the same step output and the same kernel outputs, bit
@@ -76,10 +77,12 @@ def worker(tree: str, device: str, mimc_rounds: int) -> int:
 
     assert Path(pkg.__file__).resolve().is_relative_to(Path(tree).resolve()), pkg.__file__
     from bellman_mpc_tpu_torch.curves import rns_point as rpt
+    from bellman_mpc_tpu_torch.fields.bls12_381 import fr
     from bellman_mpc_tpu_torch.groth16 import Bls12Engine, generate_random_parameters
     from bellman_mpc_tpu_torch.models import MiMCDemo, mimc_constants
     from bellman_mpc_tpu_torch.ops import fold_kernels as fk
     from bellman_mpc_tpu_torch.ops import kernel_lib as kl
+    from bellman_mpc_tpu_torch.ops.mont_kernels import mont_mul
     from bellman_mpc_tpu_torch.parallel import BatchProver
 
     cs = _chip_smoke()
@@ -109,6 +112,8 @@ def worker(tree: str, device: str, mimc_rounds: int) -> int:
     xs = f.encode([rng.randrange(f.p) for _ in range(K3_LANES)], device=dev).res
     ys = f.encode([rng.randrange(f.p) for _ in range(K3_LANES)], device=dev).res
     cases["rns_mul_many"] = lambda: fk.rns_mul_many(f, xs, ys)
+    a4, b4 = (cs.lazy_limbs(fr, K3_LANES, rng, dev) for _ in range(2))
+    cases["mont_mul"] = lambda: mont_mul(fr, a4, b4)
     proto.write(json.dumps({
         "ready_s": time.perf_counter() - t0, "launches": counts, "step": _digest(out),
         "kernels": {name: _digest(kern()) for name, kern in cases.items()},
