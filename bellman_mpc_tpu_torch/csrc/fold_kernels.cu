@@ -273,8 +273,12 @@ __device__ __forceinline__ void init_tc(TcCtx& c, const Consts* K, const double*
 // ---------------------------------------------------------------- Fp ops
 struct G1Ops {
   using V = uint32_t;
+  static constexpr int COMPS = 1;  // (80, lanes) tiles
   TcCtx& c;
   uint32_t b3;
+  static __device__ V load(const int* t, size_t i, int) { return (uint32_t)t[i]; }
+  static __device__ void store(int* t, size_t i, int, V v) { t[i] = (int)v; }
+  static __device__ uint32_t bits(V v) { return v; }
   __device__ V add(V a, V b) { return c.add(a, b); }
   __device__ V sub(V a, V b) { return c.sub(a, b); }
   __device__ V neg(V a) { return c.neg(a); }
@@ -296,8 +300,17 @@ struct Fp2 {
 
 struct G2Ops {
   using V = Fp2;
+  static constexpr int COMPS = 2;  // (80, 2, lanes): component 1 sits `lanes` words after 0
   TcCtx& c;
   uint32_t b3c;
+  static __device__ V load(const int* t, size_t i, int lanes) {
+    return {(uint32_t)t[i], (uint32_t)t[i + lanes]};
+  }
+  static __device__ void store(int* t, size_t i, int lanes, V v) {
+    t[i] = (int)v.c0;
+    t[i + lanes] = (int)v.c1;
+  }
+  static __device__ uint32_t bits(V v) { return v.c0 | v.c1; }
   __device__ V add(V a, V b) { return {c.add(a.c0, b.c0), c.add(a.c1, b.c1)}; }
   __device__ V sub(V a, V b) {
     V o;
@@ -413,80 +426,41 @@ __global__ void __launch_bounds__(TC_THREADS, 2) rns_mul_kernel(
   }
 }
 
-__global__ void __launch_bounds__(TC_THREADS, 2) fold_g1_kernel(
+// One fold window, acc (+)= sign * q on every lane: K1 with G1Ops, K2 with
+// G2Ops.  Every point argument is an (80, COMPS, lanes) tensor: component
+// c of row r, lane l sits at (COMPS r + c) lanes + l.
+template <class Ops>
+__global__ void __launch_bounds__(TC_THREADS, 2) fold_kernel(
     const int* __restrict__ ax, const int* __restrict__ ay, const int* __restrict__ az,
     const int* __restrict__ qx, const int* __restrict__ qy, const int* __restrict__ sg,
     int* __restrict__ ox, int* __restrict__ oy, int* __restrict__ oz,
     const int* __restrict__ kp, const Consts* __restrict__ K, const double* __restrict__ wf,
     int lanes, int b3) {
+  using V = typename Ops::V;
   TcSmem& s = *reinterpret_cast<TcSmem*>(tc_smem);
   TcCtx c;
   init_tc(c, K, wf, kp, &s);
-  G1Ops o{c, (uint32_t)b3};
+  Ops o{c, (uint32_t)b3};
   const int tiles = (lanes + TC_LANES - 1) / TC_LANES;
   for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
     c.kidx = 0;
     const int lane = tile * TC_LANES + c.x;
     const bool valid = lane < lanes;
-    const size_t idx = (size_t)c.r * lanes + lane;
-    const uint32_t X1 = valid ? (uint32_t)ax[idx] : 0u;
-    const uint32_t Y1 = valid ? (uint32_t)ay[idx] : 0u;
-    const uint32_t Z1 = valid ? (uint32_t)az[idx] : 0u;
-    const uint32_t X2 = valid ? (uint32_t)qx[idx] : 0u;
-    const uint32_t Y2 = valid ? (uint32_t)qy[idx] : 0u;
+    const size_t idx = (size_t)c.r * Ops::COMPS * lanes + lane;
+    auto load = [&](const int* t) { return valid ? Ops::load(t, idx, lanes) : V{}; };
+    const V X1 = load(ax), Y1 = load(ay), Z1 = load(az), X2 = load(qx), Y2 = load(qy);
     const bool neg_sign = valid && sg[lane] == 1;
     // identity sentinel BEFORE the sign flip (neg adds K*p to the exact 0);
     // on the first tile its barriers also publish what init_tc loaded
-    const bool inf = lane_is_sentinel(c, (X2 | Y2) != 0u);
-    const uint32_t Yn = o.neg(Y2);
-    const uint32_t Ys = neg_sign ? Yn : Y2;
-    uint32_t X3, Y3, Z3;
+    const bool inf = lane_is_sentinel(c, (Ops::bits(X2) | Ops::bits(Y2)) != 0u);
+    const V Yn = o.neg(Y2);
+    const V Ys = neg_sign ? Yn : Y2;
+    V X3, Y3, Z3;
     point_add_mixed(o, X1, Y1, Z1, X2, Ys, X3, Y3, Z3);
     if (valid) {
-      ox[idx] = (int)(inf ? X1 : X3);
-      oy[idx] = (int)(inf ? Y1 : Y3);
-      oz[idx] = (int)(inf ? Z1 : Z3);
-    }
-  }
-}
-
-// K2 reads and writes (80, 2, lanes) tensors: component 1 of row r, lane
-// l sits `lanes` words after component 0, at (2 r) lanes + l.
-__global__ void __launch_bounds__(TC_THREADS, 2) fold_g2_kernel(
-    const int* __restrict__ ax, const int* __restrict__ ay, const int* __restrict__ az,
-    const int* __restrict__ qx, const int* __restrict__ qy, const int* __restrict__ sg,
-    int* __restrict__ ox, int* __restrict__ oy, int* __restrict__ oz,
-    const int* __restrict__ kp, const Consts* __restrict__ K, const double* __restrict__ wf,
-    int lanes, int b3c) {
-  TcSmem& s = *reinterpret_cast<TcSmem*>(tc_smem);
-  TcCtx c;
-  init_tc(c, K, wf, kp, &s);
-  G2Ops o{c, (uint32_t)b3c};
-  const int tiles = (lanes + TC_LANES - 1) / TC_LANES;
-  for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
-    c.kidx = 0;
-    const int lane = tile * TC_LANES + c.x;
-    const bool valid = lane < lanes;
-    const size_t i0 = (size_t)c.r * 2 * lanes + lane, i1 = i0 + lanes;
-    auto load = [&](const int* t) {
-      return valid ? Fp2{(uint32_t)t[i0], (uint32_t)t[i1]} : Fp2{0u, 0u};
-    };
-    const Fp2 X1 = load(ax), Y1 = load(ay), Z1 = load(az), X2 = load(qx), Y2 = load(qy);
-    const bool neg_sign = valid && sg[lane] == 1;
-    // identity sentinel BEFORE the sign flip, as in K1
-    const bool inf = lane_is_sentinel(c, (X2.c0 | X2.c1 | Y2.c0 | Y2.c1) != 0u);
-    const Fp2 Yn = o.neg(Y2);
-    const Fp2 Ys = neg_sign ? Yn : Y2;
-    Fp2 X3, Y3, Z3;
-    point_add_mixed(o, X1, Y1, Z1, X2, Ys, X3, Y3, Z3);
-    if (valid) {
-      const Fp2 X = inf ? X1 : X3, Y = inf ? Y1 : Y3, Z = inf ? Z1 : Z3;
-      ox[i0] = (int)X.c0;
-      ox[i1] = (int)X.c1;
-      oy[i0] = (int)Y.c0;
-      oy[i1] = (int)Y.c1;
-      oz[i0] = (int)Z.c0;
-      oz[i1] = (int)Z.c1;
+      Ops::store(ox, idx, lanes, inf ? X1 : X3);
+      Ops::store(oy, idx, lanes, inf ? Y1 : Y3);
+      Ops::store(oz, idx, lanes, inf ? Z1 : Z3);
     }
   }
 }
@@ -497,7 +471,7 @@ __global__ void __launch_bounds__(TC_THREADS, 2) fold_g2_kernel(
 struct Wave {
   int dev = -1, blocks = 0;
 };
-Wave g1_wave, g2_wave, mul_wave;
+Wave mul_wave;
 
 template <class Kern>
 int wave_blocks(Kern kern, Wave& w) {
@@ -516,6 +490,23 @@ int wave_blocks(Kern kern, Wave& w) {
 
 inline int tc_grid(int wave, int units) { return units < wave ? units : wave; }
 
+template <class Ops>
+int fold_wave_blocks() {
+  static Wave w;
+  return wave_blocks(fold_kernel<Ops>, w);
+}
+
+template <class Ops>
+int launch_fold(const int* ax, const int* ay, const int* az, const int* qx, const int* qy,
+                const int* sg, int* ox, int* oy, int* oz, const int* kp, const void* consts,
+                const void* wf, int lanes, int b3, void* stream) {
+  if (lanes <= 0) return 0;
+  const int grid = tc_grid(fold_wave_blocks<Ops>(), (lanes + TC_LANES - 1) / TC_LANES);
+  fold_kernel<Ops><<<grid, dim3(TC_LANES, PC), sizeof(TcSmem), (cudaStream_t)stream>>>(
+      ax, ay, az, qx, qy, sg, ox, oy, oz, kp, (const Consts*)consts, (const double*)wf, lanes, b3);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 // ------------------------------------------------------------ C entry points
@@ -533,16 +524,12 @@ extern "C" int bmt_rns_mul(const int* xs, const int* ys, int* out, const void* c
   return (int)cudaGetLastError();
 }
 
+// The G1 window: every point argument is an (80, lanes) tile.
 extern "C" int bmt_fold_g1(const int* ax, const int* ay, const int* az, const int* qx,
                            const int* qy, const int* sg, int* ox, int* oy, int* oz,
                            const int* kp, const void* consts, const void* wf, int lanes,
                            int b3, void* stream) {
-  if (lanes <= 0) return 0;
-  const int grid = tc_grid(wave_blocks(fold_g1_kernel, g1_wave), (lanes + TC_LANES - 1) / TC_LANES);
-  fold_g1_kernel<<<grid, dim3(TC_LANES, PC), sizeof(TcSmem), (cudaStream_t)stream>>>(
-      ax, ay, az, qx, qy, sg, ox, oy, oz, kp, (const Consts*)consts, (const double*)wf, lanes,
-      b3);
-  return (int)cudaGetLastError();
+  return launch_fold<G1Ops>(ax, ay, az, qx, qy, sg, ox, oy, oz, kp, consts, wf, lanes, b3, stream);
 }
 
 // The G2 window: every point argument is an (80, 2, lanes) tensor.
@@ -550,18 +537,13 @@ extern "C" int bmt_fold_g2(const int* ax, const int* ay, const int* az, const in
                            const int* qy, const int* sg, int* ox, int* oy, int* oz,
                            const int* kp, const void* consts, const void* wf, int lanes,
                            int b3c, void* stream) {
-  if (lanes <= 0) return 0;
-  const int grid = tc_grid(wave_blocks(fold_g2_kernel, g2_wave), (lanes + TC_LANES - 1) / TC_LANES);
-  fold_g2_kernel<<<grid, dim3(TC_LANES, PC), sizeof(TcSmem), (cudaStream_t)stream>>>(
-      ax, ay, az, qx, qy, sg, ox, oy, oz, kp, (const Consts*)consts, (const double*)wf, lanes,
-      b3c);
-  return (int)cudaGetLastError();
+  return launch_fold<G2Ops>(ax, ay, az, qx, qy, sg, ox, oy, oz, kp, consts, wf, lanes, b3c, stream);
 }
 
 // Lanes that one full wave of K1's or K2's (8-lane tiles) or K3's (NMAX
 // tiles per unit) persistent blocks covers.
-extern "C" int bmt_fold_g1_wave_lanes() { return wave_blocks(fold_g1_kernel, g1_wave) * TC_LANES; }
-extern "C" int bmt_fold_g2_wave_lanes() { return wave_blocks(fold_g2_kernel, g2_wave) * TC_LANES; }
+extern "C" int bmt_fold_g1_wave_lanes() { return fold_wave_blocks<G1Ops>() * TC_LANES; }
+extern "C" int bmt_fold_g2_wave_lanes() { return fold_wave_blocks<G2Ops>() * TC_LANES; }
 extern "C" int bmt_rns_mul_wave_lanes() {
   return wave_blocks(rns_mul_kernel, mul_wave) * NMAX * TC_LANES;
 }

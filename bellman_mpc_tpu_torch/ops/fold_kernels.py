@@ -282,6 +282,17 @@ def fold_window_g2_plain(f, b3c: int, acc, q, sg, tab_n: int, cap: int, record=N
     )
 
 
+def fold_window_g2_plain_stacked(f, b3c: int, acc, q, sg, tab_n: int, cap: int):
+    """fold_window_g2_plain on K2's layout: acc (3) and q (2) are (80, 2,
+    *batch) tensors, component axis 1, sg is (*batch); returns the three
+    updated (80, 2, *batch) tensors."""
+    shape = acc[0].shape
+    lanes = int(np.prod(shape[2:]))
+    comps = lambda ts: [t[:, c].reshape(PAD_C, lanes) for t in ts for c in range(2)]
+    outs = fold_window_g2_plain(f, b3c, comps(acc), comps(q), sg.reshape(lanes).to(torch.int32), tab_n, cap)
+    return tuple(torch.stack([outs[2 * i], outs[2 * i + 1]], dim=1).reshape(shape) for i in range(3))
+
+
 @functools.lru_cache(maxsize=None)
 def fold_schedule(f, b, tab_n: int, cap: int, g2: bool) -> Tuple[int, ...]:
     """The K of every sub/neg of one fold window, in call order: the plain
@@ -466,9 +477,7 @@ def rns_fold_window_g2(f, b3c: int, acc_res, q, sgn, tab_bound, cap):
     sg = sgn.reshape(lanes).to(torch.int32).contiguous()
     tab_n, cap = _tab_n(tab_bound), int(cap)
     if device_kind(sg) == "cpu":
-        comps = lambda ts: [t[:, c].reshape(PAD_C, lanes) for t in ts for c in range(2)]
-        outs = fold_window_g2_plain(f, b3c, comps(acc_res), comps(q), sg, tab_n, cap)
-        return tuple(torch.stack([outs[2 * i], outs[2 * i + 1]], dim=1).reshape(shape) for i in range(3))
+        return fold_window_g2_plain_stacked(f, b3c, acc_res, q, sg, tab_n, cap)
     dev = sg.device
     _check_tiles(tuple(acc_res) + tuple(q), tuple(shape), dev)
     ks = fold_schedule(f, b3c, tab_n, cap, True)

@@ -141,14 +141,20 @@ def point_pool(group, hostg, n: int, rng: random.Random, device):
 
 
 def gather_q(pool, lanes: int, rng: random.Random, device):
-    """lanes gathered pool points, every 7th lane the (0, 0) sentinel, and
-    random signs."""
+    """lanes gathered pool points, every 7th lane the (0, 0) sentinel, every
+    7th from lane 3 a point zero only in part (G1: x; G2: component 1 of x
+    and y), which is not the sentinel, and random signs."""
     import torch
 
     idx = torch.tensor([rng.randrange(pool[0].shape[-1]) for _ in range(lanes)], device=device)
     q = tuple(t[..., idx].clone() for t in pool)
     for t in q:
         t[..., ::7] = 0
+    if q[0].dim() == 3:  # G2: component 1 of x and y
+        for t in q:
+            t[:, 1, 3::7] = 0
+    else:  # G1: x
+        q[0][:, 3::7] = 0
     sgn = torch.tensor([rng.randrange(2) == 1 for _ in range(lanes)], device=device)
     return q, sgn
 
@@ -207,9 +213,7 @@ def check_kernels(device, rng: random.Random, g1_lanes=16384, g2_lanes=8192):
             """The plain version, its output laid out as the kernel's."""
             if not g2:
                 return fk.fold_window_g1_plain(f, b, acc, q[0], q[1], sgn.to(torch.int32), tab_n, int(cap))
-            comps = lambda ts: [t[:, c].contiguous() for t in ts for c in range(2)]
-            ref = fk.fold_window_g2_plain(f, b, comps(acc), comps(q), sgn.to(torch.int32), tab_n, int(cap))
-            return tuple(torch.stack([ref[2 * i], ref[2 * i + 1]], dim=1) for i in range(3))
+            return fk.fold_window_g2_plain_stacked(f, b, acc, q, sgn, tab_n, int(cap))
 
         def chained(n, windows):
             """`windows` windows from the identity at n lanes, each checked;
@@ -272,16 +276,8 @@ def fold_window_cases(bp, rng: random.Random):
         acc = fold(f, b, acc, q, sgn, bound, cap)  # a generic accumulator
         lanes = B_PROOFS * n
         if g2:
-            flat = lambda t: [t[:, 0].reshape(fk.PAD_C, lanes).contiguous(),
-                              t[:, 1].reshape(fk.PAD_C, lanes).contiguous()]
-            a_f = sum((flat(t) for t in acc), [])
-            q_f = sum((flat(t) for t in q), [])
-
             def plain():
-                ref = fk.fold_window_g2_plain(f, b, a_f, q_f, sgn.reshape(-1).to(torch.int32),
-                                              fk._tab_n(bound), int(cap))
-                ref = tuple(torch.stack([ref[2 * i], ref[2 * i + 1]], dim=1) for i in range(3))
-                return tuple(t.reshape(acc[0].shape) for t in ref)
+                return fk.fold_window_g2_plain_stacked(f, b, acc, q, sgn, fk._tab_n(bound), int(cap))
         else:
             a_f = [t.reshape(fk.PAD_C, lanes).contiguous() for t in acc]
             q_f = [t.reshape(fk.PAD_C, lanes).contiguous() for t in q]

@@ -7,8 +7,9 @@ times each variant's K1 and K2 at one wave of their persistent blocks and
 at the main path's lanes (K1 16384, K2 8192; CUDA events over 50 direct
 launches), in ROUNDS rounds that take the variants in turn, and prints each
 time's median and range over the rounds.  It says whether each output
-equals the unmodified kernel's and prints ptxas's report for both kernels.  Variants whose output differs are
-timing probes only: the time they save is what the replaced part costs.
+equals the unmodified kernel's and prints ptxas's report for both kernels.
+Variants whose output differs are timing probes only: the time they save is
+what the replaced part costs.
 
     python3 scripts/probe_torch_fold_parts.py     # one CUDA card and nvcc
 
@@ -17,6 +18,7 @@ Imports nothing of JAX and nothing of the JAX package.
 
 import ctypes
 import random
+import re
 import statistics
 import subprocess
 import sys
@@ -33,7 +35,8 @@ DMMA = '''  asm("mma.sync.aligned.m8n8k4.row.col.f64.f64.f64.f64 {%0, %1}, {%2},
 ONE_CHAIN = "#pragma unroll\n  for (int k = 0; k < EXT_KSTEPS; ++k) dmma(c0, c1, w[k * FRAG], b[4 * k]);"
 EXT1 = "    for (int i = warp; i < N * EXT_TILES; i += TC_WARPS) ext1_tile(i / EXT_TILES, i % EXT_TILES);"
 EXT2 = "    for (int i = warp; i < N * EXT_TILES; i += TC_WARPS) ext2_tile(i / EXT_TILES, i % EXT_TILES);"
-BOUNDS = "__global__ void __launch_bounds__(TC_THREADS, 2) fold_g1_kernel"
+BOUNDS = "__global__ void __launch_bounds__(TC_THREADS, 2) fold_kernel"
+WAVE = "    w.blocks = sms * (per_sm > 0 ? per_sm : 1);"
 NMAX = "constexpr int NMAX = 6;"
 
 # name -> (what it shows, [(text in the source, replacement)])
@@ -52,15 +55,19 @@ VARIANTS = {
                 ("    ext_tile(s->W[1], s->xi2[j], w, lane, c0, c1);", "    c0 = c1 = s->xi2[j][0][lane & 7];")]),
     "no extensions": ("no extension work at all: channelwise stages, barriers, loads and stores",
                       [(EXT1, ""), (EXT2, "")]),
-    "1 block/SM": ("K1 under __launch_bounds__(640, 1): registers unconstrained, one block per SM",
-                   [(BOUNDS, BOUNDS.replace("2)", "1)"))]),
-    "3 blocks/SM": ("K1 under __launch_bounds__(640, 3): at most 32 registers, three blocks per SM",
+    "1 block/SM": ("K1 and K2 under __launch_bounds__(640, 1): registers without a cap, in a grid of one "
+                   "block per SM",
+                   [(BOUNDS, BOUNDS.replace("2)", "1)")), (WAVE, "    w.blocks = sms;")]),
+    "1 block/SM, capped": ("the kernels as built (48-register cap) in a grid of one block per SM: beside "
+                           "\"1 block/SM\", what the cap's spills cost at equal occupancy",
+                           [(WAVE, "    w.blocks = sms;")]),
+    "3 blocks/SM": ("K1 and K2 under __launch_bounds__(640, 3): at most 32 registers, three blocks per SM",
                     [(BOUNDS, BOUNDS.replace("2)", "3)"))]),
     "batches of 9": ("NMAX = 9: K2's products in batches of 9 (three Karatsuba triples, 12 barriers per "
                      "window) instead of 6, and 100356 bytes of shared memory per block (exact)",
                      [(NMAX, NMAX.replace("6", "9"))]),
 }
-KERNELS = ("fold_g1_kernel", "fold_g2_kernel")
+KERNELS = {"K1": "G1Ops", "K2": "G2Ops"}  # name -> fold_kernel<Ops>
 ROUNDS = 7
 
 
@@ -72,7 +79,7 @@ def build(name: str, src: str, tmp: Path):
         if old not in text:
             raise RuntimeError(f"variant {name!r}: its source text is no longer in fold_kernels.cu")
         text = text.replace(old, new)
-    stem = name.replace(" ", "_").replace("/", "_")
+    stem = re.sub(r"\W+", "_", name)  # nvcc takes only plain file names
     cu, so = tmp / f"{stem}.cu", tmp / f"{stem}.so"
     cu.write_text(text)
     proc = subprocess.run(nvcc_command(cu, so, shared=True), capture_output=True, text=True)
@@ -80,8 +87,8 @@ def build(name: str, src: str, tmp: Path):
         raise RuntimeError(f"nvcc failed for {name!r}:\n{proc.stderr}")
     lines = proc.stderr.splitlines()
     report = {}
-    for kern in KERNELS:
-        at = next(i for i, line in enumerate(lines) if kern in line and "Compiling" in line)
+    for kern, ops in KERNELS.items():
+        at = next(i for i, line in enumerate(lines) if "Compiling" in line and "fold_kernel" in line and ops in line)
         report[kern] = " ".join(line.split(":", 1)[-1].strip() for line in lines[at + 2 : at + 4])
     return so, report
 
@@ -115,8 +122,7 @@ def main() -> int:
         # kernel -> its entry point, the main path's lanes, and inputs at those lanes
         # (K2's points are (80, 2, lanes)): accumulator, table point, signs, K*p rows
         cases = {}
-        for kern, entry, lanes, g2 in (("fold_g1_kernel", "bmt_fold_g1", 16384, False),
-                                       ("fold_g2_kernel", "bmt_fold_g2", 8192, True)):
+        for kern, entry, lanes, g2 in (("K1", "bmt_fold_g1", 16384, False), ("K2", "bmt_fold_g2", 8192, True)):
             shape, n_el = ((fk.PAD_C, 2, lanes), 2 * lanes) if g2 else ((fk.PAD_C, lanes), lanes)
             ins = [tile(n_el, shape) for _ in range(3)] + [tile(n_el, shape, [0]), tile(n_el, shape, [0])]
             sg = torch.tensor([rng.randrange(2) for _ in range(lanes)], dtype=torch.int32, device=dev)
@@ -149,7 +155,7 @@ def main() -> int:
                     ref.setdefault(kern, outs)
                     same[(name, kern)] = all(torch.equal(a, b) for a, b in zip(outs, ref[kern]))
         for name, (_, report) in built.items():
-            print(f"{name:16s} ({VARIANTS[name][0]})")
+            print(f"{name:18s} ({VARIANTS[name][0]})")
             for kern in KERNELS:
                 line = []
                 for (v, k, n), ts in times.items():

@@ -94,21 +94,25 @@ def test_k1_chained_windows(dev, lanes):
         assert all(torch.equal(g, w) for g, w in zip(acc, want))
 
 
-def _fp2_tile(rng, lanes, dev, zero_cols=()):
-    return torch.stack([_tile(rng, lanes, dev, zero_cols), _tile(rng, lanes, dev, zero_cols)], dim=1)
+def _fp2_tile(rng, lanes, dev, zero_cols=(), zero_c1=()):
+    """(80, 2, lanes): both components zero at zero_cols, component 1 alone
+    at zero_c1."""
+    c1 = list(zero_cols) + list(zero_c1)
+    return torch.stack([_tile(rng, lanes, dev, zero_cols), _tile(rng, lanes, dev, c1)], dim=1)
 
 
 def _k2_inputs(rng, lanes, dev):
-    """Gathered points with the (0, 0) sentinel at the first and last lanes."""
-    q = tuple(_fp2_tile(rng, lanes, dev, [0, lanes - 1]) for _ in range(2))
+    """Gathered points with the (0, 0) sentinel at the first and last lanes,
+    and lanes that are zero only in part, which are not the sentinel: lane 4
+    with x1 = y1 = 0 (x0, y0 nonzero), lane 5 with x = 0."""
+    qx = _fp2_tile(rng, lanes, dev, [0, 5, lanes - 1], [4])
+    qy = _fp2_tile(rng, lanes, dev, [0, lanes - 1], [4])
     sg = torch.tensor([rng.randrange(2) == 1 for _ in range(lanes)], device=dev)
-    return q, sg
+    return (qx, qy), sg
 
 
 def _k2_plain(acc, q, sg):
-    flat = lambda ts: [t[:, c].contiguous() for t in ts for c in range(2)]
-    want = fk.fold_window_g2_plain(F, 12, flat(acc), flat(q), sg.to(torch.int32), 37, fk.G2_CAP)
-    return tuple(torch.stack([want[2 * i], want[2 * i + 1]], dim=1) for i in range(3))
+    return fk.fold_window_g2_plain_stacked(F, 12, acc, q, sg, 37, fk.G2_CAP)
 
 
 @pytest.mark.cuda
