@@ -1,119 +1,336 @@
-// Montgomery multiply of 11-bit-limb field elements for Hopper (sm_90a).
+// Montgomery multiply of 11-bit-limb field elements, on 32-bit words, for
+// Hopper (sm_90a).
 //
 // Replaces the Pallas TPU kernel K4 of bellman_mpc_tpu/ops/pallas_kernels.py:
-//   bmt_mont_mul <- _jit_mont_mul_pallas (body _mont_mul_block), which the
-//   h(x) pipeline runs for its coset pointwise product.
-// The plain PyTorch version is LimbField.mul (fields/limb.py), which
-// ops/mont_kernels.py takes for CPU tensors; raw output limbs equal it.
+//   bmt_mont_mul <- _jit_mont_mul_pallas (body _mont_mul_block).
+// Every LimbField.mul of the port on a CUDA tensor launches it
+// (ops/mont_kernels.py): the h(x) pipeline's NTT stages, scalings and
+// coset product, Montgomery conversions, and the Fermat inversions of
+// decode.  The plain PyTorch version is LimbField.mul_plain; raw output
+// limbs equal it.
 //
-// Layout: a, b, out are (L, n) int32 limb tensors, limb-major, lazy values
-// (< 2p) with canonical 11-bit digits.  The arithmetic is the reference's:
-// full schoolbook product columns, L word-by-word reduction steps (the m of
-// each step keeps only its low 11 bits, so the product that wraps in int32
-// in the reference is taken in uint32 here: no signed overflow), 4 flat carry
-// folds that drop the top limb's carry, then a generate/propagate carry pass.
-// Every column stays below L (2^11-1)^2 + L (2^11-1)^2 < 2^31.
+// The function.  a, b are lazy (< 2p) with canonical 11-bit digits, L of
+// them; R = 2^(11L).  The plain version (and the reference) computes
+//   out = the canonical 11-bit digits of (a b + M p) / R,
+//   M = -a b p^-1 mod R, taken in [0, R), with no final subtraction:
+// its word-by-word reduction picks L digits m_i in [0, 2^11), so its M lies
+// in [0, R) and solves a b + M p = 0 mod R, which makes it THE solution
+// there; its folds and carry pass then give the canonical digits of that
+// value, which is below 2p < R.  So any exact reduction that ends at the
+// same R gives the same limbs, whatever its word size.  This kernel:
+//   1. packs the limbs of a and b into N 32-bit words (N = 8 for Fr, 12 for
+//      Fp; a value below 2p fits);
+//   2. runs CIOS Montgomery over S = floor(11L / 32) whole words (S = N for
+//      Fr and Fp), with m_i = -t_0 p^-1 mod 2^32;
+//   3. takes one final step over the remaining 11L - 32S bits (Fr 8, Fp 12,
+//      the mock field's L = 2: all 22, S = 0), m' = -t_0 p^-1 mod 2^(11L-32S),
+//      so M = sum m_i 2^(32 i) + m' 2^(32 S) lies in [0, R);
+//   4. unpacks the result into L canonical 11-bit digits.
 //
-// What bounds it on this card: per lane 3 L int32 words move (a, b in, out).
-// This 11-bit-limb algorithm spends about 1,650 integer operations per lane
-// at L = 24, but a Montgomery product of 8 32-bit words needs a few hundred,
-// so the function is bound by memory; at the prover's shapes (16384 lanes)
-// the launch itself dominates.
+// What bounded PR 2's design: it ran the TPU kernel's algorithm, one
+// thread per lane in 256-thread blocks, about 1,650 integer operations per
+// lane on 11-bit limbs at L = 24; at the h(x) pipeline's 8192 lanes that is
+// 32 blocks for 132 SMs, and at decode's 16 lanes half of one warp.  What
+// this design does: a Montgomery product on 32-bit words needs about 560
+// operations at L = 24 (2 N^2 word products with their carries), and the
+// launcher fills the card at the shapes the port runs (the template's G
+// threads per lane, blocks of `block` threads, `mont_mul_config`).  With G
+// threads per lane each thread owns W = N / G consecutive words of the CIOS
+// accumulator t: per step it adds a_k b_i and m p_k to its own words in one
+// carry chain each, thread 0 computes m and passes it on (__shfl_sync), the
+// one-word shift takes each thread's lowest word from the thread above
+// (__shfl_down_sync), and the carry out of each thread's top goes to the
+// thread above as the carry into its lowest word at the next step
+// (__shfl_up_sync), so thread 0's lowest word, which m is taken from, is
+// always exact.  After the last step every thread gathers the words and
+// the pending carries, takes the final step and writes every G-th limb.
+// The carry chains are either 64-bit accumulators (mul.wide.u32) or PTX
+// carry-flag chains (mad.lo.cc / madc.hi.cc), a template parameter.
 //
-// What the design does about it: one thread per lane, so each limb row's
-// loads and stores are coalesced across a warp; the kernel is templated on
-// L and fully unrolled, so the 2L product columns and the L limbs of b stay
-// in registers and nothing but the output is written.  The carry pass is a
-// sequential ripple per lane, which gives the same digits as the
-// reference's log-depth prefix scan.  Faster variants (several lanes per
-// thread, 32-bit limbs) are later work.
+// Operands are read through a limb stride and a two-level lane index with
+// strides (0 broadcasts), so the call sites' views and broadcast constants
+// need no copy; the output is a contiguous (L, n) tensor.  Bounds: every
+// accumulator word stays below 2^32 with carries of at most 2 between
+// threads; t < 3p < 2^(32N + 1) after the whole-word steps.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace {
 
-constexpr uint32_t LIMB_BITS = 11;
-constexpr uint32_t LIMB_MASK = (1u << LIMB_BITS) - 1;
-constexpr int THREADS = 256;
-constexpr int MAX_L = 36;
+constexpr uint32_t LIMB_MASK = (1u << 11) - 1;
+constexpr unsigned FULL = 0xffffffffu;
+constexpr int MAX_N = 12;
+constexpr int MAX_BLOCK = 512;
 
 struct Modulus {
-  uint32_t p[MAX_L];  // limbs of p, low first
-  uint32_t n0inv;     // -p^-1 mod 2^11
+  uint32_t p[MAX_N];  // words of p, low first
+  uint32_t n0;        // -p^-1 mod 2^32
+  uint32_t nr;        // -p^-1 mod 2^(11L - 32S)
+};
+
+// element offsets of one operand: limb l of lane i = i1 n0 + i0 lies at
+// l ls + i1 s1 + i0 s0
+struct Operand {
+  long long ls, n0, s1, s0;
 };
 
 template <int L>
-__global__ void __launch_bounds__(THREADS)
+struct Shape {
+  static constexpr int S = 11 * L / 32;               // whole-word CIOS steps
+  static constexpr int R_BITS = 11 * L - 32 * S;      // the final step's bits
+  static constexpr int N = S > 0 ? S : 1;             // words of a value below 2p
+  static_assert(R_BITS > 0 && R_BITS < 32, "the final step takes 1-31 bits");
+  static_assert(S == N || (S == 0 && N == 1), "whole-word steps cover the input words");
+};
+
+__device__ __forceinline__ long long lane_offset(const Operand& o, int lane) {
+  const int n0 = (int)o.n0;
+  const int i1 = lane / n0;
+  return i1 * o.s1 + (lane - i1 * n0) * o.s0;
+}
+
+// the L limbs at p (stride ls) packed into N words
+template <int L, int N>
+__device__ __forceinline__ void load_words(const int* __restrict__ p, long long ls, uint32_t (&w)[N]) {
+#pragma unroll
+  for (int k = 0; k < N; ++k) w[k] = 0;
+#pragma unroll
+  for (int l = 0; l < L; ++l) {
+    const uint32_t v = (uint32_t)__ldg(p + l * ls);
+    const int k = 11 * l / 32, sh = 11 * l % 32;
+    if (k < N) w[k] |= v << sh;
+    if (sh > 21 && k + 1 < N) w[k + 1] |= v >> (32 - sh);
+  }
+}
+
+// x += a b + c over W words; returns the carry out of the top word
+template <int W, bool PTX>
+__device__ __forceinline__ uint32_t mac_row(uint32_t (&x)[W], const uint32_t (&a)[W], uint32_t b,
+                                            uint32_t c) {
+  if constexpr (PTX) {
+    // low halves into x[k] in one carry chain, then high halves into x[k+1]
+    uint32_t top;
+    asm volatile("add.cc.u32 %0, %0, %1;" : "+r"(x[0]) : "r"(c));
+#pragma unroll
+    for (int k = 0; k < W; ++k) asm volatile("madc.lo.cc.u32 %0, %1, %2, %0;" : "+r"(x[k]) : "r"(a[k]), "r"(b));
+    asm volatile("addc.u32 %0, 0, 0;" : "=r"(top));
+    if constexpr (W > 1) {
+      asm volatile("mad.hi.cc.u32 %0, %1, %2, %0;" : "+r"(x[1]) : "r"(a[0]), "r"(b));
+#pragma unroll
+      for (int k = 1; k + 1 < W; ++k)
+        asm volatile("madc.hi.cc.u32 %0, %1, %2, %0;" : "+r"(x[k + 1]) : "r"(a[k]), "r"(b));
+      asm volatile("madc.hi.u32 %0, %1, %2, %0;" : "+r"(top) : "r"(a[W - 1]), "r"(b));
+    } else {
+      asm volatile("mad.hi.u32 %0, %1, %2, %0;" : "+r"(top) : "r"(a[0]), "r"(b));
+    }
+    return top;
+  } else {
+#pragma unroll
+    for (int k = 0; k < W; ++k) {
+      const uint64_t s = (uint64_t)a[k] * b + x[k] + c;
+      x[k] = (uint32_t)s;
+      c = (uint32_t)(s >> 32);
+    }
+    return c;
+  }
+}
+
+template <int L, int G, bool PTX>
+__global__ void __launch_bounds__(MAX_BLOCK)
 mont_mul_kernel(const int* __restrict__ a, const int* __restrict__ b, int* __restrict__ out,
-                const Modulus mod, int n) {
-  const int lane = blockIdx.x * THREADS + threadIdx.x;
-  if (lane >= n) return;
-  uint32_t bj[L];
-#pragma unroll
-  for (int j = 0; j < L; ++j) bj[j] = (uint32_t)b[(size_t)j * n + lane];
+                const Modulus mod, const Operand oa, const Operand ob, int n) {
+  using Sh = Shape<L>;
+  constexpr int N = Sh::N, S = Sh::S, RB = Sh::R_BITS, W = N / G;
+  static_assert(N % G == 0 && 32 % G == 0, "a lane's G threads split its words and a warp");
+  static_assert(S > 0 || G == 1, "the mock field runs one thread per lane");
+  const long long tid = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  int lane = (int)(tid / G);
+  const int j = G == 1 ? 0 : (int)(threadIdx.x % G);
+  const bool live = lane < n;
+  if constexpr (G == 1) {
+    if (!live) return;
+  } else if (!live) {
+    lane = n - 1;  // computes a copy of the last lane for the shuffles, stores nothing
+  }
+  uint32_t aw[N], bw[N];
+  load_words<L, N>(a + lane_offset(oa, lane), oa.ls, aw);
+  load_words<L, N>(b + lane_offset(ob, lane), ob.ls, bw);
 
-  // schoolbook product columns t[c] = sum_{i+j=c} a_i b_j
-  uint32_t t[2 * L];
+  uint32_t t[N + 1];  // t as N + 1 whole words, the same in every thread of the lane
+  if constexpr (S == 0) {
+    const uint64_t ab = (uint64_t)aw[0] * bw[0];
+    t[0] = (uint32_t)ab;
+    t[1] = (uint32_t)(ab >> 32);
+  } else {
+    // this thread's words of a and p, and of the accumulator
+    uint32_t am[W], pm[W], x[W];
 #pragma unroll
-  for (int c = 0; c < 2 * L; ++c) t[c] = 0;
+    for (int k = 0; k < W; ++k) {
+      am[k] = aw[k];
+      pm[k] = mod.p[k];
+      x[k] = 0;
+    }
 #pragma unroll
-  for (int i = 0; i < L; ++i) {
-    const uint32_t ai = (uint32_t)a[(size_t)i * n + lane];
+    for (int g = 1; g < G; ++g)
 #pragma unroll
-    for (int j = 0; j < L; ++j) t[i + j] += ai * bj[j];
+      for (int k = 0; k < W; ++k)
+        if (j == g) {
+          am[k] = aw[g * W + k];
+          pm[k] = mod.p[g * W + k];
+        }
+    uint32_t ext = 0;  // word N of t (the top thread's)
+    uint32_t cin = 0;  // carry into this thread's lowest word, from the thread below
+#pragma unroll
+    for (int i = 0; i < N; ++i) {
+      const uint32_t ca = mac_row<W, PTX>(x, am, bw[i], cin);
+      uint32_t m = x[0] * mod.n0;
+      if constexpr (G > 1) m = __shfl_sync(FULL, m, 0, G);
+      const uint32_t cb = mac_row<W, PTX>(x, pm, m, 0u);
+      uint32_t from_above = ext;
+      if constexpr (G > 1) {
+        const uint32_t v = __shfl_down_sync(FULL, x[0], 1, G);
+        if (j != G - 1) from_above = v;
+      }
+#pragma unroll
+      for (int k = 0; k + 1 < W; ++k) x[k] = x[k + 1];
+      const uint64_t s = (uint64_t)from_above + ca + cb;
+      x[W - 1] = (uint32_t)s;
+      const uint32_t hi = (uint32_t)(s >> 32);
+      if constexpr (G > 1) {
+        const uint32_t below = __shfl_up_sync(FULL, hi, 1, G);
+        cin = j == 0 ? 0u : below;
+        if (j == G - 1) ext = hi;
+      } else {
+        ext = hi;
+      }
+    }
+    // gather the words and add the pending carries
+    if constexpr (G == 1) {
+#pragma unroll
+      for (int k = 0; k < N; ++k) t[k] = x[k];
+      t[N] = ext;
+    } else {
+      uint32_t cg[G];
+#pragma unroll
+      for (int g = 0; g < G; ++g) cg[g] = __shfl_sync(FULL, cin, g, G);
+#pragma unroll
+      for (int k = 0; k < N; ++k) t[k] = __shfl_sync(FULL, x[k % W], k / W, G);
+      t[N] = __shfl_sync(FULL, ext, G - 1, G);
+      uint32_t c = 0;
+#pragma unroll
+      for (int k = 0; k <= N; ++k) {
+        const uint64_t s = (uint64_t)t[k] + c + (k % W == 0 && k > 0 && k < N ? cg[k / W] : 0u);
+        t[k] = (uint32_t)s;
+        c = (uint32_t)(s >> 32);
+      }
+    }
   }
 
-  // word-by-word Montgomery reduction
-  uint32_t carry = 0;
-#pragma unroll
-  for (int i = 0; i < L; ++i) {
-    const uint32_t ti = t[i] + carry;
-    const uint32_t m = (ti * mod.n0inv) & LIMB_MASK;
-    carry = (ti + m * mod.p[0]) >> LIMB_BITS;
-#pragma unroll
-    for (int j = 1; j < L; ++j) t[i + j] += m * mod.p[j];
-  }
-  t[L] += carry;
-
-  // 4 flat carry folds on r = t[L:]; the top limb's carry is dropped
-#pragma unroll
-  for (int s = 0; s < 4; ++s) {
-#pragma unroll
-    for (int k = L - 1; k > 0; --k) t[L + k] = (t[L + k] & LIMB_MASK) + (t[L + k - 1] >> LIMB_BITS);
-    t[L] &= LIMB_MASK;
-  }
-
-  // generate/propagate carry pass: carry_out = g | (p & carry_in)
+  // the final step over RB bits: t += m' p, then t >>= RB
+  const uint32_t mr = (t[0] * mod.nr) & ((1u << RB) - 1);
   uint32_t c = 0;
 #pragma unroll
-  for (int k = 0; k < L; ++k) {
-    const uint32_t r = t[L + k];
-    out[(size_t)k * n + lane] = (int)((r + c) & LIMB_MASK);
-    c = (uint32_t)(r > LIMB_MASK) | ((uint32_t)(r == LIMB_MASK) & c);
+  for (int k = 0; k < N; ++k) {
+    const uint64_t s = (uint64_t)mr * mod.p[k] + t[k] + c;
+    t[k] = (uint32_t)s;
+    c = (uint32_t)(s >> 32);
   }
+  t[N] += c;
+  uint32_t r[N];
+#pragma unroll
+  for (int k = 0; k < N; ++k) r[k] = (t[k] >> RB) | (t[k + 1] << (32 - RB));
+
+  if (!live) return;
+#pragma unroll
+  for (int l = 0; l < L; ++l) {
+    if (G > 1 && l % G != j) continue;
+    const int k = 11 * l / 32, sh = 11 * l % 32;
+    uint32_t v = k < N ? r[k] >> sh : 0u;
+    if (sh > 21 && k + 1 < N) v |= r[k + 1] << (32 - sh);
+    out[(size_t)l * n + lane] = (int)(v & LIMB_MASK);
+  }
+}
+
+// the instantiated (threads per lane, carry chain) variants, by L
+template <int L, int G, bool PTX>
+cudaError_t launch(const int* a, const int* b, int* out, const Modulus& mod, const Operand& oa,
+                   const Operand& ob, int n, int block, cudaStream_t s) {
+  const long long threads = (long long)n * G;
+  const unsigned grid = (unsigned)((threads + block - 1) / block);
+  mont_mul_kernel<L, G, PTX><<<grid, block, 0, s>>>(a, b, out, mod, oa, ob, n);
+  return cudaGetLastError();
+}
+
+template <int L, int G>
+cudaError_t launch_g(const int* a, const int* b, int* out, const Modulus& mod, const Operand& oa,
+                     const Operand& ob, int n, int block, int ptx, cudaStream_t s) {
+  return ptx ? launch<L, G, true>(a, b, out, mod, oa, ob, n, block, s)
+             : launch<L, G, false>(a, b, out, mod, oa, ob, n, block, s);
+}
+
+cudaError_t dispatch(const int* a, const int* b, int* out, const Modulus& mod, const Operand& oa,
+                     const Operand& ob, int L, int n, int G, int block, int ptx, cudaStream_t s) {
+  if (block < 32 || block > MAX_BLOCK || block % 32 != 0) return cudaErrorInvalidValue;
+  switch (L * 100 + G) {
+    case 201: return launch_g<2, 1>(a, b, out, mod, oa, ob, n, block, ptx, s);
+    case 2401: return launch_g<24, 1>(a, b, out, mod, oa, ob, n, block, ptx, s);
+    case 2402: return launch_g<24, 2>(a, b, out, mod, oa, ob, n, block, ptx, s);
+    case 2404: return launch_g<24, 4>(a, b, out, mod, oa, ob, n, block, ptx, s);
+    case 2408: return launch_g<24, 8>(a, b, out, mod, oa, ob, n, block, ptx, s);
+    case 3601: return launch_g<36, 1>(a, b, out, mod, oa, ob, n, block, ptx, s);
+    case 3602: return launch_g<36, 2>(a, b, out, mod, oa, ob, n, block, ptx, s);
+    case 3604: return launch_g<36, 4>(a, b, out, mod, oa, ob, n, block, ptx, s);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
+int words_of(int L) {
+  switch (L) {
+    case 2: return Shape<2>::N;
+    case 24: return Shape<24>::N;
+    case 36: return Shape<36>::N;
+    default: return -1;
+  }
+}
+
+// consts: host words [N, p_0 .. p_{N-1}, -p^-1 mod 2^32, -p^-1 mod 2^(11L-32S)];
+// geo: host [a: ls, n0, s1, s0, b: ls, n0, s1, s0]
+cudaError_t prepare(const unsigned* consts, const long long* geo, int L, int n, Modulus& mod,
+                    Operand& oa, Operand& ob) {
+  const int N = words_of(L);
+  if (N < 0 || (int)consts[0] != N || n <= 0) return cudaErrorInvalidValue;
+  mod = {};
+  for (int k = 0; k < N; ++k) mod.p[k] = consts[1 + k];
+  mod.n0 = consts[1 + N];
+  mod.nr = consts[2 + N];
+  oa = {geo[0], geo[1], geo[2], geo[3]};
+  ob = {geo[4], geo[5], geo[6], geo[7]};
+  if (oa.n0 <= 0 || ob.n0 <= 0) return cudaErrorInvalidValue;
+  return cudaSuccess;
 }
 
 }  // namespace
 
-// Plain C entry point: launches on `stream`, does not synchronise, and
-// returns cudaGetLastError() right after its launch.  p_limbs is a HOST
-// array of L limbs; L must be one of the instantiated widths (2, 24, 36).
+// Plain C entry points: launch on `stream`, do not synchronise, and return
+// cudaGetLastError() right after the launch (0 and no launch when n == 0).
+// bmt_mont_mul_config runs any instantiated variant: G threads per lane
+// (L = 2: 1; 24: 1, 2, 4, 8; 36: 1, 2, 4), `block` threads per block (a
+// multiple of 32, at most 512), `ptx` carry-flag chains or 64-bit
+// accumulators.  bmt_mont_mul runs the variant the port uses.
 
-extern "C" int bmt_mont_mul(const int* a, const int* b, int* out, const int* p_limbs, int L,
-                            int n0inv, int n, void* stream) {
-  if (n <= 0) return 0;
-  if (L <= 0 || L > MAX_L) return (int)cudaErrorInvalidValue;
-  Modulus mod = {};
-  for (int j = 0; j < L; ++j) mod.p[j] = (uint32_t)p_limbs[j];
-  mod.n0inv = (uint32_t)n0inv;
-  const dim3 grid((n + THREADS - 1) / THREADS);
-  cudaStream_t s = (cudaStream_t)stream;
-  switch (L) {
-    case 2: mont_mul_kernel<2><<<grid, THREADS, 0, s>>>(a, b, out, mod, n); break;
-    case 24: mont_mul_kernel<24><<<grid, THREADS, 0, s>>>(a, b, out, mod, n); break;
-    case 36: mont_mul_kernel<36><<<grid, THREADS, 0, s>>>(a, b, out, mod, n); break;
-    default: return (int)cudaErrorInvalidValue;
-  }
-  return (int)cudaGetLastError();
+extern "C" int bmt_mont_mul_config(const int* a, const int* b, int* out, const unsigned* consts,
+                                   const long long* geo, int L, int n, int G, int block, int ptx,
+                                   void* stream) {
+  if (n == 0) return 0;
+  Modulus mod;
+  Operand oa, ob;
+  cudaError_t err = prepare(consts, geo, L, n, mod, oa, ob);
+  if (err != cudaSuccess) return (int)err;
+  return (int)dispatch(a, b, out, mod, oa, ob, L, n, G, block, ptx, (cudaStream_t)stream);
+}
+
+extern "C" int bmt_mont_mul(const int* a, const int* b, int* out, const unsigned* consts,
+                            const long long* geo, int L, int n, void* stream) {
+  return bmt_mont_mul_config(a, b, out, consts, geo, L, n, 1, 64, 0, stream);
 }

@@ -27,6 +27,9 @@ from typing import Dict, List, Sequence, Tuple
 import numpy as np
 import torch
 
+from ..ops.kernel_lib import plain_counts
+from ..ops.mont_kernels import mont_mul
+
 LIMB_BITS = 11
 LIMB_MASK = (1 << LIMB_BITS) - 1
 
@@ -195,7 +198,14 @@ class LimbField:
         return self._normalize(self._fold(r, steps=fold_steps))
 
     def mul(self, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-        """Montgomery product a*b*R^{-1} mod p (lazy in, lazy out)."""
+        """Montgomery product a*b*R^{-1} mod p (lazy in, lazy out): the K4
+        kernel on CUDA tensors, `mul_plain` on CPU tensors (equal limbs)."""
+        return mont_mul(self, a, b)
+
+    def mul_plain(self, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+        """K4's plain version: product columns, then `redc_cols`."""
+        if a.is_cuda or b.is_cuda:
+            plain_counts["mont_mul"] += 1
         return self.redc_cols(self.mul_cols(a, b))
 
     def square(self, a: torch.Tensor) -> torch.Tensor:

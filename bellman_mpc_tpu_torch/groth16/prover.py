@@ -10,10 +10,11 @@ Port of bellman_mpc_tpu/groth16/prover.py (bellman/src/groth16/prover.rs):
     (prover.rs:158-350): the h pipeline on one witness, six MSMs on the
     engine's groups, the delta != identity guard, proof assembly.
 
-The pipeline's coset pointwise product always goes through the limb
-Montgomery kernel (ops/mont_kernels.mont_mul, the reference's Pallas K4,
-which the reference takes under BMT_PALLAS=1); its output limbs equal
-LimbField.mul's, so there is no switch around it.
+Every limb multiply of the pipeline (NTT stages, scalings, the coset
+pointwise product) goes through LimbField.mul, which on the card is the
+limb Montgomery kernel (ops/mont_kernels.mont_mul, the reference's Pallas
+K4, which the reference takes for the coset product under BMT_PALLAS=1);
+its output limbs equal the plain version's, so there is no switch.
 """
 
 from __future__ import annotations
@@ -24,7 +25,6 @@ from typing import List
 from ..fields.host import PrimeField
 from ..fields.limb import LimbField
 from ..ops.domain import distribute_powers, domain_size_for, ntt, warm_twiddles
-from ..ops.mont_kernels import mont_mul
 from ..r1cs.core import INPUT, Circuit, UnexpectedIdentity, Variable
 from .assembly import ProvingAssignment
 from .types import Parameters, Proof
@@ -48,15 +48,11 @@ def _h_pipeline(field: LimbField, host: PrimeField, exp: int):
         x = distribute_powers(field, host, x, gen)
         return ntt(field, host, x, inverse=False)  # coset_fft
 
-    def pointwise_mul(a, b):  # K4 on (L, batch * m)
-        flat = a.reshape(a.shape[0], -1).contiguous()
-        return mont_mul(field, flat, b.reshape(flat.shape).contiguous()).reshape(a.shape)
-
     def pipeline(a, b, c):
         a = coset_values(a)
         b = coset_values(b)
         c = coset_values(c)
-        h = field.sub(pointwise_mul(a, b), c)
+        h = field.sub(field.mul(a, b), c)
         h = field.mul_const(h, zinv)  # divide_by_z_on_coset
         h = ntt(field, host, h, inverse=True)  # icoset_fft part 1
         return distribute_powers(field, host, h, geninv)

@@ -33,11 +33,15 @@ _lib = None
 launch_counts: Dict[str, int] = {
     "mont_mul": 0, "rns_mul_many": 0, "rns_fold_window": 0, "rns_fold_window_g2": 0,
 }
+# calls of a kernel's plain version on a CUDA tensor (LimbField.mul_plain
+# counts here), so a run can show that its path took none of them
+plain_counts: Dict[str, int] = {"mont_mul": 0}
 
 
 def reset_launch_counts() -> None:
-    for k in launch_counts:
-        launch_counts[k] = 0
+    for counts in (launch_counts, plain_counts):
+        for k in counts:
+            counts[k] = 0
 
 
 def _nvcc() -> str:
@@ -106,7 +110,8 @@ def _stale() -> bool:
 _P, _I = ctypes.c_void_p, ctypes.c_int
 # every C entry point's argument types (each returns an int)
 ARGTYPES = {
-    "bmt_mont_mul": [_P, _P, _P, ctypes.POINTER(ctypes.c_int), _I, _I, _I, _P],
+    "bmt_mont_mul": [_P, _P, _P, _P, _P, _I, _I, _P],
+    "bmt_mont_mul_config": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
     "bmt_rns_mul": [_P, _P, _P, _P, _P, _I, _P],
     "bmt_fold_g1": [_P] * 6 + [_P] * 3 + [_P, _P, _P, _I, _I, _P],
     "bmt_fold_g2": [_P] * 6 + [_P] * 3 + [_P, _P, _P, _I, _I, _P],

@@ -93,19 +93,22 @@ def cuda_time_ms(fn, reps: int) -> float:
     return start.elapsed_time(stop) / reps
 
 
-def graph_time_ms(fn, reps: int) -> float:
-    """Mean device time of fn() over `reps` replays of a CUDA graph that
-    captured one call (CUDA events), after one eager warm-up call.  The
-    replays queue the work faster than the card runs it, so the host's
-    per-call launch overhead (tens of microseconds of Python around each
-    kernel) does not stand in for the kernel's time."""
+def graph_time_ms(fn, reps: int, calls: int = 1) -> float:
+    """Mean device time of one fn() call over `reps` replays of a CUDA graph
+    that captured `calls` calls back to back (CUDA events), after one eager
+    warm-up call.  The replays queue the work faster than the card runs it,
+    so the host's per-call launch overhead (tens of microseconds of Python
+    around each kernel) does not stand in for the kernel's time; `calls` > 1
+    also spreads the graph's own launch (a few microseconds) over that many
+    kernels, for kernels that take about as long."""
     import torch
 
     fn()
     torch.cuda.synchronize()
     g = torch.cuda.CUDAGraph()
     with torch.cuda.graph(g):
-        fn()
+        for _ in range(calls):
+            fn()
     g.replay()
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
@@ -115,7 +118,7 @@ def graph_time_ms(fn, reps: int) -> float:
         g.replay()
     stop.record()
     torch.cuda.synchronize()
-    return start.elapsed_time(stop) / reps
+    return start.elapsed_time(stop) / (reps * calls)
 
 
 def max_abs_err(a, b) -> int:
