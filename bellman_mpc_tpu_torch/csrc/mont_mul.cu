@@ -21,37 +21,33 @@
 //   1. packs the limbs of a and b into N 32-bit words (N = 8 for Fr, 12 for
 //      Fp; a value below 2p fits);
 //   2. runs CIOS Montgomery over S = floor(11L / 32) whole words (S = N for
-//      Fr and Fp), with m_i = -t_0 p^-1 mod 2^32;
+//      Fr and Fp), m_i = -t_0 p^-1 mod 2^32, each row a carry chain of
+//      64-bit accumulators (mul.wide.u32);
 //   3. takes one final step over the remaining 11L - 32S bits (Fr 8, Fp 12,
 //      the mock field's L = 2: all 22, S = 0), m' = -t_0 p^-1 mod 2^(11L-32S),
 //      so M = sum m_i 2^(32 i) + m' 2^(32 S) lies in [0, R);
 //   4. unpacks the result into L canonical 11-bit digits.
+// Bounds: t < 3p < 2^(32N + 1) after the whole-word steps, so N + 1 words
+// hold it; every 64-bit accumulator stays below 2^64.
 //
-// What bounded PR 2's design: it ran the TPU kernel's algorithm, one
-// thread per lane in 256-thread blocks, about 1,650 integer operations per
-// lane on 11-bit limbs at L = 24; at the h(x) pipeline's 8192 lanes that is
-// 32 blocks for 132 SMs, and at decode's 16 lanes half of one warp.  What
-// this design does: a Montgomery product on 32-bit words needs about 560
-// operations at L = 24 (2 N^2 word products with their carries), and the
-// launcher fills the card at the shapes the port runs (the template's G
-// threads per lane, blocks of `block` threads, `mont_mul_config`).  With G
-// threads per lane each thread owns W = N / G consecutive words of the CIOS
-// accumulator t: per step it adds a_k b_i and m p_k to its own words in one
-// carry chain each, thread 0 computes m and passes it on (__shfl_sync), the
-// one-word shift takes each thread's lowest word from the thread above
-// (__shfl_down_sync), and the carry out of each thread's top goes to the
-// thread above as the carry into its lowest word at the next step
-// (__shfl_up_sync), so thread 0's lowest word, which m is taken from, is
-// always exact.  After the last step every thread gathers the words and
-// the pending carries, takes the final step and writes every G-th limb.
-// The carry chains are either 64-bit accumulators (mul.wide.u32) or PTX
-// carry-flag chains (mad.lo.cc / madc.hi.cc), a template parameter.
+// What bounded PR 2's design: it ran the TPU kernel's algorithm, about
+// 1,650 integer operations per lane on 11-bit limbs at L = 24, one thread
+// per lane in 256-thread blocks: 32 blocks for 132 SMs at the h(x)
+// pipeline's 8192 lanes, half of one warp at decode's 16.  What this
+// design does: a product on 32-bit words needs about 560 operations at
+// L = 24 (2 N^2 word products with their carries), and blocks of 64
+// threads spread 8192 lanes over 128 blocks.  What bounds it now is one
+// lane's latency (the loads, the carry chains, the store) plus the launch:
+// on the H100 it takes about 0.003 ms at 512 lanes and barely more at
+// 16384.  Two designs measured against it were slower at every shape of
+// the port (PERF.md, PR 6): 2, 4 or 8 threads per lane, each owning a few
+// words of the accumulator and passing m, the shifted word and carries
+// with __shfl_sync; and PTX carry-flag chains (mad.lo.cc / madc.hi.cc) in
+// place of the 64-bit accumulators.
 //
 // Operands are read through a limb stride and a two-level lane index with
 // strides (0 broadcasts), so the call sites' views and broadcast constants
-// need no copy; the output is a contiguous (L, n) tensor.  Bounds: every
-// accumulator word stays below 2^32 with carries of at most 2 between
-// threads; t < 3p < 2^(32N + 1) after the whole-word steps.
+// need no copy; the output is a contiguous (L, n) tensor.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -59,9 +55,8 @@
 namespace {
 
 constexpr uint32_t LIMB_MASK = (1u << 11) - 1;
-constexpr unsigned FULL = 0xffffffffu;
 constexpr int MAX_N = 12;
-constexpr int MAX_BLOCK = 512;
+constexpr int BLOCK = 64;
 
 struct Modulus {
   uint32_t p[MAX_N];  // words of p, low first
@@ -104,126 +99,57 @@ __device__ __forceinline__ void load_words(const int* __restrict__ p, long long 
   }
 }
 
-// x += a b + c over W words; returns the carry out of the top word
-template <int W, bool PTX>
-__device__ __forceinline__ uint32_t mac_row(uint32_t (&x)[W], const uint32_t (&a)[W], uint32_t b,
-                                            uint32_t c) {
-  if constexpr (PTX) {
-    // low halves into x[k] in one carry chain, then high halves into x[k+1]
-    uint32_t top;
-    asm volatile("add.cc.u32 %0, %0, %1;" : "+r"(x[0]) : "r"(c));
+// x += a b over N words; returns the carry out of the top word
+template <int N>
+__device__ __forceinline__ uint32_t mac_row(uint32_t (&x)[N], const uint32_t (&a)[N], uint32_t b) {
+  uint32_t c = 0;
 #pragma unroll
-    for (int k = 0; k < W; ++k) asm volatile("madc.lo.cc.u32 %0, %1, %2, %0;" : "+r"(x[k]) : "r"(a[k]), "r"(b));
-    asm volatile("addc.u32 %0, 0, 0;" : "=r"(top));
-    if constexpr (W > 1) {
-      asm volatile("mad.hi.cc.u32 %0, %1, %2, %0;" : "+r"(x[1]) : "r"(a[0]), "r"(b));
-#pragma unroll
-      for (int k = 1; k + 1 < W; ++k)
-        asm volatile("madc.hi.cc.u32 %0, %1, %2, %0;" : "+r"(x[k + 1]) : "r"(a[k]), "r"(b));
-      asm volatile("madc.hi.u32 %0, %1, %2, %0;" : "+r"(top) : "r"(a[W - 1]), "r"(b));
-    } else {
-      asm volatile("mad.hi.u32 %0, %1, %2, %0;" : "+r"(top) : "r"(a[0]), "r"(b));
-    }
-    return top;
-  } else {
-#pragma unroll
-    for (int k = 0; k < W; ++k) {
-      const uint64_t s = (uint64_t)a[k] * b + x[k] + c;
-      x[k] = (uint32_t)s;
-      c = (uint32_t)(s >> 32);
-    }
-    return c;
+  for (int k = 0; k < N; ++k) {
+    const uint64_t s = (uint64_t)a[k] * b + x[k] + c;
+    x[k] = (uint32_t)s;
+    c = (uint32_t)(s >> 32);
   }
+  return c;
 }
 
-template <int L, int G, bool PTX>
-__global__ void __launch_bounds__(MAX_BLOCK)
+template <int L>
+__global__ void __launch_bounds__(BLOCK)
 mont_mul_kernel(const int* __restrict__ a, const int* __restrict__ b, int* __restrict__ out,
                 const Modulus mod, const Operand oa, const Operand ob, int n) {
   using Sh = Shape<L>;
-  constexpr int N = Sh::N, S = Sh::S, RB = Sh::R_BITS, W = N / G;
-  static_assert(N % G == 0 && 32 % G == 0, "a lane's G threads split its words and a warp");
-  static_assert(S > 0 || G == 1, "the mock field runs one thread per lane");
-  const long long tid = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  int lane = (int)(tid / G);
-  const int j = G == 1 ? 0 : (int)(threadIdx.x % G);
-  const bool live = lane < n;
-  if constexpr (G == 1) {
-    if (!live) return;
-  } else if (!live) {
-    lane = n - 1;  // computes a copy of the last lane for the shuffles, stores nothing
-  }
+  constexpr int N = Sh::N, RB = Sh::R_BITS;
+  const int lane = blockIdx.x * BLOCK + threadIdx.x;
+  if (lane >= n) return;
   uint32_t aw[N], bw[N];
   load_words<L, N>(a + lane_offset(oa, lane), oa.ls, aw);
   load_words<L, N>(b + lane_offset(ob, lane), ob.ls, bw);
 
-  uint32_t t[N + 1];  // t as N + 1 whole words, the same in every thread of the lane
-  if constexpr (S == 0) {
+  uint32_t t[N + 1];  // t in N + 1 words
+  if constexpr (Sh::S == 0) {
     const uint64_t ab = (uint64_t)aw[0] * bw[0];
     t[0] = (uint32_t)ab;
     t[1] = (uint32_t)(ab >> 32);
   } else {
-    // this thread's words of a and p, and of the accumulator
-    uint32_t am[W], pm[W], x[W];
+    uint32_t p[N];
 #pragma unroll
-    for (int k = 0; k < W; ++k) {
-      am[k] = aw[k];
-      pm[k] = mod.p[k];
-      x[k] = 0;
+    for (int k = 0; k < N; ++k) {
+      p[k] = mod.p[k];
+      t[k] = 0;
     }
+    t[N] = 0;
 #pragma unroll
-    for (int g = 1; g < G; ++g)
+    for (int i = 0; i < N; ++i) {  // t = (t + a b_i + m p) / 2^32
+      uint32_t x[N];
 #pragma unroll
-      for (int k = 0; k < W; ++k)
-        if (j == g) {
-          am[k] = aw[g * W + k];
-          pm[k] = mod.p[g * W + k];
-        }
-    uint32_t ext = 0;  // word N of t (the top thread's)
-    uint32_t cin = 0;  // carry into this thread's lowest word, from the thread below
+      for (int k = 0; k < N; ++k) x[k] = t[k];
+      const uint32_t ca = mac_row<N>(x, aw, bw[i]);
+      const uint32_t m = x[0] * mod.n0;
+      const uint32_t cb = mac_row<N>(x, p, m);
+      const uint64_t top = (uint64_t)t[N] + ca + cb;
 #pragma unroll
-    for (int i = 0; i < N; ++i) {
-      const uint32_t ca = mac_row<W, PTX>(x, am, bw[i], cin);
-      uint32_t m = x[0] * mod.n0;
-      if constexpr (G > 1) m = __shfl_sync(FULL, m, 0, G);
-      const uint32_t cb = mac_row<W, PTX>(x, pm, m, 0u);
-      uint32_t from_above = ext;
-      if constexpr (G > 1) {
-        const uint32_t v = __shfl_down_sync(FULL, x[0], 1, G);
-        if (j != G - 1) from_above = v;
-      }
-#pragma unroll
-      for (int k = 0; k + 1 < W; ++k) x[k] = x[k + 1];
-      const uint64_t s = (uint64_t)from_above + ca + cb;
-      x[W - 1] = (uint32_t)s;
-      const uint32_t hi = (uint32_t)(s >> 32);
-      if constexpr (G > 1) {
-        const uint32_t below = __shfl_up_sync(FULL, hi, 1, G);
-        cin = j == 0 ? 0u : below;
-        if (j == G - 1) ext = hi;
-      } else {
-        ext = hi;
-      }
-    }
-    // gather the words and add the pending carries
-    if constexpr (G == 1) {
-#pragma unroll
-      for (int k = 0; k < N; ++k) t[k] = x[k];
-      t[N] = ext;
-    } else {
-      uint32_t cg[G];
-#pragma unroll
-      for (int g = 0; g < G; ++g) cg[g] = __shfl_sync(FULL, cin, g, G);
-#pragma unroll
-      for (int k = 0; k < N; ++k) t[k] = __shfl_sync(FULL, x[k % W], k / W, G);
-      t[N] = __shfl_sync(FULL, ext, G - 1, G);
-      uint32_t c = 0;
-#pragma unroll
-      for (int k = 0; k <= N; ++k) {
-        const uint64_t s = (uint64_t)t[k] + c + (k % W == 0 && k > 0 && k < N ? cg[k / W] : 0u);
-        t[k] = (uint32_t)s;
-        c = (uint32_t)(s >> 32);
-      }
+      for (int k = 0; k + 1 < N; ++k) t[k] = x[k + 1];
+      t[N - 1] = (uint32_t)top;
+      t[N] = (uint32_t)(top >> 32);
     }
   }
 
@@ -241,10 +167,8 @@ mont_mul_kernel(const int* __restrict__ a, const int* __restrict__ b, int* __res
 #pragma unroll
   for (int k = 0; k < N; ++k) r[k] = (t[k] >> RB) | (t[k + 1] << (32 - RB));
 
-  if (!live) return;
 #pragma unroll
   for (int l = 0; l < L; ++l) {
-    if (G > 1 && l % G != j) continue;
     const int k = 11 * l / 32, sh = 11 * l % 32;
     uint32_t v = k < N ? r[k] >> sh : 0u;
     if (sh > 21 && k + 1 < N) v |= r[k + 1] << (32 - sh);
@@ -252,85 +176,52 @@ mont_mul_kernel(const int* __restrict__ a, const int* __restrict__ b, int* __res
   }
 }
 
-// the instantiated (threads per lane, carry chain) variants, by L
-template <int L, int G, bool PTX>
-cudaError_t launch(const int* a, const int* b, int* out, const Modulus& mod, const Operand& oa,
-                   const Operand& ob, int n, int block, cudaStream_t s) {
-  const long long threads = (long long)n * G;
-  const unsigned grid = (unsigned)((threads + block - 1) / block);
-  mont_mul_kernel<L, G, PTX><<<grid, block, 0, s>>>(a, b, out, mod, oa, ob, n);
-  return cudaGetLastError();
-}
-
-template <int L, int G>
-cudaError_t launch_g(const int* a, const int* b, int* out, const Modulus& mod, const Operand& oa,
-                     const Operand& ob, int n, int block, int ptx, cudaStream_t s) {
-  return ptx ? launch<L, G, true>(a, b, out, mod, oa, ob, n, block, s)
-             : launch<L, G, false>(a, b, out, mod, oa, ob, n, block, s);
-}
-
-cudaError_t dispatch(const int* a, const int* b, int* out, const Modulus& mod, const Operand& oa,
-                     const Operand& ob, int L, int n, int G, int block, int ptx, cudaStream_t s) {
-  if (block < 32 || block > MAX_BLOCK || block % 32 != 0) return cudaErrorInvalidValue;
-  switch (L * 100 + G) {
-    case 201: return launch_g<2, 1>(a, b, out, mod, oa, ob, n, block, ptx, s);
-    case 2401: return launch_g<24, 1>(a, b, out, mod, oa, ob, n, block, ptx, s);
-    case 2402: return launch_g<24, 2>(a, b, out, mod, oa, ob, n, block, ptx, s);
-    case 2404: return launch_g<24, 4>(a, b, out, mod, oa, ob, n, block, ptx, s);
-    case 2408: return launch_g<24, 8>(a, b, out, mod, oa, ob, n, block, ptx, s);
-    case 3601: return launch_g<36, 1>(a, b, out, mod, oa, ob, n, block, ptx, s);
-    case 3602: return launch_g<36, 2>(a, b, out, mod, oa, ob, n, block, ptx, s);
-    case 3604: return launch_g<36, 4>(a, b, out, mod, oa, ob, n, block, ptx, s);
-    default: return cudaErrorInvalidValue;
-  }
-}
-
-int words_of(int L) {
-  switch (L) {
-    case 2: return Shape<2>::N;
-    case 24: return Shape<24>::N;
-    case 36: return Shape<36>::N;
-    default: return -1;
-  }
-}
-
-// consts: host words [N, p_0 .. p_{N-1}, -p^-1 mod 2^32, -p^-1 mod 2^(11L-32S)];
-// geo: host [a: ls, n0, s1, s0, b: ls, n0, s1, s0]
-cudaError_t prepare(const unsigned* consts, const long long* geo, int L, int n, Modulus& mod,
-                    Operand& oa, Operand& ob) {
-  const int N = words_of(L);
-  if (N < 0 || (int)consts[0] != N || n <= 0) return cudaErrorInvalidValue;
-  mod = {};
-  for (int k = 0; k < N; ++k) mod.p[k] = consts[1 + k];
-  mod.n0 = consts[1 + N];
-  mod.nr = consts[2 + N];
-  oa = {geo[0], geo[1], geo[2], geo[3]};
-  ob = {geo[4], geo[5], geo[6], geo[7]};
-  if (oa.n0 <= 0 || ob.n0 <= 0) return cudaErrorInvalidValue;
-  return cudaSuccess;
+template <int L>
+int wave_lanes() {
+  int dev = 0, sms = 0, per_sm = 0;
+  cudaGetDevice(&dev);
+  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, mont_mul_kernel<L>, BLOCK, 0);
+  return sms * per_sm * BLOCK;
 }
 
 }  // namespace
 
-// Plain C entry points: launch on `stream`, do not synchronise, and return
-// cudaGetLastError() right after the launch (0 and no launch when n == 0).
-// bmt_mont_mul_config runs any instantiated variant: G threads per lane
-// (L = 2: 1; 24: 1, 2, 4, 8; 36: 1, 2, 4), `block` threads per block (a
-// multiple of 32, at most 512), `ptx` carry-flag chains or 64-bit
-// accumulators.  bmt_mont_mul runs the variant the port uses.
-
-extern "C" int bmt_mont_mul_config(const int* a, const int* b, int* out, const unsigned* consts,
-                                   const long long* geo, int L, int n, int G, int block, int ptx,
-                                   void* stream) {
-  if (n == 0) return 0;
-  Modulus mod;
-  Operand oa, ob;
-  cudaError_t err = prepare(consts, geo, L, n, mod, oa, ob);
-  if (err != cudaSuccess) return (int)err;
-  return (int)dispatch(a, b, out, mod, oa, ob, L, n, G, block, ptx, (cudaStream_t)stream);
+// Lanes that one full wave of K4's blocks covers on the current device (SMs x
+// resident blocks per SM x 64); 0 for an L that is not instantiated.
+extern "C" int bmt_mont_mul_wave_lanes(int L) {
+  switch (L) {
+    case 2: return wave_lanes<2>();
+    case 24: return wave_lanes<24>();
+    case 36: return wave_lanes<36>();
+    default: return 0;
+  }
 }
+
+// Plain C entry point: launches on `stream`, does not synchronise, and
+// returns cudaGetLastError() right after its launch (0 and no launch when
+// n == 0).  consts: host words [N, p_0 .. p_{N-1}, -p^-1 mod 2^32,
+// -p^-1 mod 2^(11L-32S)]; geo: host [a: ls, n0, s1, s0, b: ls, n0, s1, s0];
+// L must be one of the instantiated widths (2, 24, 36).
 
 extern "C" int bmt_mont_mul(const int* a, const int* b, int* out, const unsigned* consts,
                             const long long* geo, int L, int n, void* stream) {
-  return bmt_mont_mul_config(a, b, out, consts, geo, L, n, 1, 64, 0, stream);
+  if (n == 0) return 0;
+  const int N = L == 2 ? Shape<2>::N : L == 24 ? Shape<24>::N : L == 36 ? Shape<36>::N : -1;
+  if (N < 0 || n < 0 || (int)consts[0] != N || geo[1] <= 0 || geo[5] <= 0)
+    return (int)cudaErrorInvalidValue;
+  Modulus mod = {};
+  for (int k = 0; k < N; ++k) mod.p[k] = consts[1 + k];
+  mod.n0 = consts[1 + N];
+  mod.nr = consts[2 + N];
+  const Operand oa = {geo[0], geo[1], geo[2], geo[3]};
+  const Operand ob = {geo[4], geo[5], geo[6], geo[7]};
+  const dim3 grid((n + BLOCK - 1) / BLOCK);
+  cudaStream_t s = (cudaStream_t)stream;
+  switch (L) {
+    case 2: mont_mul_kernel<2><<<grid, BLOCK, 0, s>>>(a, b, out, mod, oa, ob, n); break;
+    case 24: mont_mul_kernel<24><<<grid, BLOCK, 0, s>>>(a, b, out, mod, oa, ob, n); break;
+    case 36: mont_mul_kernel<36><<<grid, BLOCK, 0, s>>>(a, b, out, mod, oa, ob, n); break;
+  }
+  return (int)cudaGetLastError();
 }

@@ -111,7 +111,7 @@ _P, _I = ctypes.c_void_p, ctypes.c_int
 # every C entry point's argument types (each returns an int)
 ARGTYPES = {
     "bmt_mont_mul": [_P, _P, _P, _P, _P, _I, _I, _P],
-    "bmt_mont_mul_config": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+    "bmt_mont_mul_wave_lanes": [_I],
     "bmt_rns_mul": [_P, _P, _P, _P, _P, _I, _P],
     "bmt_fold_g1": [_P] * 6 + [_P] * 3 + [_P, _P, _P, _I, _I, _P],
     "bmt_fold_g2": [_P] * 6 + [_P] * 3 + [_P, _P, _P, _I, _I, _P],

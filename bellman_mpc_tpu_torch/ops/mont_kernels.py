@@ -53,13 +53,16 @@ def word_consts(p: int, L: int) -> ctypes.Array:
 def lane_map(t: torch.Tensor, shape: Tuple[int, ...]) -> Optional[Tuple[int, int, int, int]]:
     """(limb stride, n0, s1, s0) such that lane i = i1 * n0 + i0 of the
     (L, *batch) broadcast `shape`, in row-major order over the batch, lies at
-    element offset i1 * s1 + i0 * s0 (+ limb * limb stride) of t; None when
-    t's batch axes do not merge into two."""
-    e = t.expand(shape)
+    element offset i1 * s1 + i0 * s0 (+ limb * limb stride) of t (whose
+    shape broadcasts to `shape`, axis for axis); None when t's batch axes do
+    not merge into two."""
+    strides = t.stride()
     dims = []  # (size, stride), outer first, size-1 axes dropped, mergeable axes merged
-    for size, st in zip(shape[1:], e.stride()[1:]):
+    for size, own, st in zip(shape[1:], t.shape[1:], strides[1:]):
         if size == 1:
             continue
+        if own == 1:
+            st = 0  # broadcast
         if dims and dims[-1][1] == st * size:
             dims[-1] = (dims[-1][0] * size, st)
         else:
@@ -67,48 +70,47 @@ def lane_map(t: torch.Tensor, shape: Tuple[int, ...]) -> Optional[Tuple[int, int
     if len(dims) > 2:
         return None
     dims = [(1, 0)] * (2 - len(dims)) + dims
-    return e.stride()[0], dims[1][0], dims[0][1], dims[1][1]
+    return strides[0], dims[1][0], dims[0][1], dims[1][1]
 
 
-def mont_mul(field: "LimbField", a: torch.Tensor, b: torch.Tensor,
-             config: Optional[Tuple[int, int, int]] = None) -> torch.Tensor:
+def mont_mul(field: "LimbField", a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """K4: Montgomery product of two broadcastable (L, *batch) int32 limb
-    tensors, lazy (< 2p) with canonical digits; `LimbField.mul` is this.
-    `config` = (threads per lane, block, PTX carry chains) runs that variant
-    of the kernel (`bmt_mont_mul_config`) in place of the port's choice."""
+    tensors, lazy (< 2p) with canonical digits; `LimbField.mul` is this."""
+    L = field.L
+    if (a.dim() != b.dim() or a.dim() == 0 or a.shape[0] != L or b.shape[0] != L
+            or any(x != y and x != 1 and y != 1 for x, y in zip(a.shape, b.shape))):
+        raise ValueError(f"expected two broadcastable ({L}, *batch) limb tensors, got "
+                         f"{tuple(a.shape)} and {tuple(b.shape)}")
+    if a.dtype != torch.int32 or b.dtype != torch.int32:
+        raise ValueError(f"mont_mul takes int32 limbs, got {a.dtype} and {b.dtype}")
     if device_kind(a) == "cpu" and device_kind(b) == "cpu":
         return field.mul_plain(a, b)
-    L = field.L
-    if a.device != b.device or a.dtype != torch.int32 or b.dtype != torch.int32:
-        raise ValueError(f"mont_mul takes int32 tensors on one CUDA device, got {a.dtype} on "
-                         f"{a.device} and {b.dtype} on {b.device}")
+    if a.device != b.device:
+        raise ValueError(f"mont_mul takes tensors on one CUDA device, got {a.device} and {b.device}")
     if L not in KERNEL_L:
         raise ValueError(f"the CUDA kernel is built for L in {KERNEL_L}, not {L}")
-    if a.dim() != b.dim() or a.dim() == 0 or a.shape[0] != L or b.shape[0] != L:
-        raise ValueError(f"expected two ({L}, *batch) limb tensors, got {tuple(a.shape)} and "
-                         f"{tuple(b.shape)}")
-    shape = torch.broadcast_shapes(a.shape, b.shape)
+    shape = tuple(y if x == 1 else x for x, y in zip(a.shape, b.shape))
     out = torch.empty(shape, dtype=torch.int32, device=a.device)
     n = out.numel() // L
     if n == 0:
         return out
     if n >= 1 << 31:
         raise ValueError(f"mont_mul takes fewer than 2^31 lanes, got {n}")
-    geo = []
-    for t in (a, b):
-        g = lane_map(t, shape)
-        if g is None:  # three or more lane levels: one copy
-            t = t.expand(shape).contiguous()
-            g = lane_map(t, shape)
-        geo.append((t, g))
-    (a, ga), (b, gb) = geo
-    args = (a.data_ptr(), b.data_ptr(), out.data_ptr(), word_consts(field.p, L),
-            (ctypes.c_longlong * 8)(*ga, *gb), L, n)
-    lib = load()
-    if config is None:
-        err = lib.bmt_mont_mul(*args, stream(out.device))
-    else:
-        err = lib.bmt_mont_mul_config(*args, *config, stream(out.device))
+    ga, gb = lane_map(a, shape), lane_map(b, shape)
+    if ga is None:  # three or more lane levels: one copy
+        a = a.expand(shape).contiguous()
+        ga = lane_map(a, shape)
+    if gb is None:
+        b = b.expand(shape).contiguous()
+        gb = lane_map(b, shape)
+    err = load().bmt_mont_mul(a.data_ptr(), b.data_ptr(), out.data_ptr(), word_consts(field.p, L),
+                              (ctypes.c_longlong * 8)(*ga, *gb), L, n, stream(out.device))
     raise_on(err, "bmt_mont_mul")
     launch_counts["mont_mul"] += 1
     return out
+
+
+def wave_lanes(L: int) -> int:
+    """Lanes that one full wave of K4's blocks covers on the current CUDA
+    device (SMs x resident blocks per SM x 64 threads, one lane each)."""
+    return int(load().bmt_mont_mul_wave_lanes(L))

@@ -15,20 +15,25 @@ Phases (each raises on failure; nothing is caught):
      16384 lanes and K2 at 8192 lanes on encoded curve points with both
      signs and (0, 0) sentinels mixed in, over three chained windows, and
      K2 over two windows one lane past a full wave of its persistent
-     blocks; K4 against LimbField.mul on Fr at the main path's (24, 16384),
-     on Fp at a ragged (36, 4099) and on the mock field, with inputs up to
-     2p; time K3 and K1 at 16384 lanes and K2 at 8192 lanes beside their
-     plain versions;
+     blocks; K4 and LimbField.mul against LimbField.mul_plain on Fr, Fp
+     and the mock field at 1, 13 and one past a full wave of lanes with
+     the edge operands 0, 1, p-1, p, 2p-1, at the main path's (24, 8192),
+     (24, 16384) and (36, 16), and on NTT-stage views and broadcast
+     constants (check_mont_mul); time K3 and K1 at 16384 lanes, K2 at 8192
+     lanes and K4 at (24, 8192) and (24, 16384) beside their plain versions;
   4. setup: generate_random_parameters for MiMC-322 (constants seed 42),
      then BatchProver(msm_strategy="rns") with its padded RNS tables;
-  5. prove_batch on B=16 random witnesses, launch counts checked (K4 once,
-     for the h(x) pipeline's coset product, K1 132 times, K2 33 times), all
-     16 proofs verified by the port's verifier;
-  6. timings: table build, median step of 3, proofs/s, and one fold
-     window's kernel time beside its plain version's at the main path's
-     shapes (gathered from the real tables);
-  7. the sequential create_random_proof of witness 0 (K4 once, no fold
-     kernel) equals batch proof 0 in its 192 serialized bytes and verifies;
+  5. prove_batch on B=16 random witnesses, launch counts checked (K1 132
+     times, K2 33 times, K4 once for every limb multiply: k4_counts derives
+     162 per step and 1847 per decode; the plain multiply never on a CUDA
+     tensor), all 16 proofs verified by the port's verifier;
+  6. timings: one step and one decode counted apart, table build, median
+     step of 3, proofs/s, decode seconds, and one fold window's kernel time
+     beside its plain version's at the main path's shapes (gathered from the
+     real tables);
+  7. the sequential create_random_proof of witness 0 (K4 3236 times, no
+     fold kernel) equals batch proof 0 in its 192 serialized bytes and
+     verifies;
   8. RangeDemo (the chip gate's setup and witnesses, n = 4, B = 16):
      setup, BatchProver(rns), 16/16 verified, proof 0 equal to the
      sequential proof, launch counts checked.
@@ -307,42 +312,124 @@ def time_fold_windows(bp, rng: random.Random):
     return out
 
 
+def limb_digits(f, vals, device):
+    """(L, n) int32 canonical 11-bit digits of the host ints vals (each below
+    2^(11 L))."""
+    import numpy as np
+    import torch
+
+    nb = f.nbytes
+    u = np.frombuffer(b"".join(v.to_bytes(nb, "little") for v in vals), np.uint8).reshape(len(vals), nb)
+    u = np.concatenate([u, np.zeros((len(vals), 2), np.uint8)], axis=1).astype(np.int32)
+    j = f._byte_idx
+    chunk = u[:, j] | (u[:, j + 1] << 8) | (u[:, j + 2] << 16)
+    return torch.from_numpy(np.ascontiguousarray(((chunk >> f._bit_shift) & 2047).T.astype(np.int32))).to(device)
+
+
 def lazy_limbs(f, n: int, rng: random.Random, device):
     """(L, n) int32 canonical digits of values in [0, 2p); every 5th lane
     within 2^8 of 2p, the largest value the kernels take."""
-    import torch
-
     vals = [2 * f.p - 1 - rng.randrange(256) if i % 5 == 0 else rng.randrange(2 * f.p)
             for i in range(n)]
-    return torch.tensor([[(v >> (11 * i)) & 2047 for v in vals] for i in range(f.L)],
-                        dtype=torch.int32, device=device)
+    return limb_digits(f, vals, device)
+
+
+def edge_limbs(f, n: int, rng: random.Random, device):
+    """Two (L, n) lazy_limbs operands whose first lanes pair the edge values
+    0, 1, p-1, p and 2p-1 every way (25 lanes, fewer when n is smaller)."""
+    edges = [0, 1, f.p - 1, f.p, 2 * f.p - 1]
+    pairs = [(x, y) for x in edges for y in edges][:n]
+    a, b = lazy_limbs(f, n, rng, device), lazy_limbs(f, n, rng, device)
+    a[:, :len(pairs)] = limb_digits(f, [x for x, _ in pairs], device)
+    b[:, :len(pairs)] = limb_digits(f, [y for _, y in pairs], device)
+    return a, b
+
+
+K4_TIMED_LANES = (8192, 16384)  # Fr: an NTT stage of a B = 16 step, a whole-batch product
 
 
 def check_mont_mul(device, rng: random.Random):
-    """Phase 3, K4: bit-exact against its plain version, LimbField.mul, on
-    Fr at the main path's (24, 16384), on Fp at a ragged (36, 4099) and on
-    the mock field; kernel and plain times at Fr."""
+    """Phase 3, K4: the kernel (mont_mul) and LimbField.mul, which launches
+    it on a CUDA tensor, bit-exact against the plain version,
+    LimbField.mul_plain: on Fr, Fp and the mock field at 1 and 13 lanes and
+    one lane past a full wave of its blocks, with the edge operands 0, 1,
+    p-1, p, 2p-1 paired every way in the first lanes; on Fr at the main
+    path's (24, 8192) and (24, 16384), and on Fp at decode's (36, 16); on the
+    call sites' strided and broadcast operands (NTT-stage upper halves of a
+    B = 16, m = 1024 batch against their (L, 1, 1, half) twiddles, a
+    mul_const constant).  Times K4 (device time, 20 calls per captured
+    graph), its eager call and its plain version at Fr (24, 8192) and
+    (24, 16384), and the graph floor: a one-element PyTorch kernel timed the
+    same way."""
     import torch
 
     from bellman_mpc_tpu_torch.fields.bls12_381 import fp, fr
     from bellman_mpc_tpu_torch.fields.mock import mock
-    from bellman_mpc_tpu_torch.ops.mont_kernels import mont_mul
+    from bellman_mpc_tpu_torch.ops.mont_kernels import mont_mul, wave_lanes
 
-    out = {}
-    for name, f, n in (("Fr", fr, B_PROOFS * 1024), ("Fp", fp, 4099), ("mock", mock, 4099)):
-        a, b = lazy_limbs(f, n, rng, device), lazy_limbs(f, n, rng, device)
-        got = mont_mul(f, a, b)
-        plain = f.mul(a, b)
+    checked = []
+
+    def check(f, a, b, what):
+        want = f.mul_plain(a, b)
+        got = (mont_mul(f, a, b), f.mul(a, b))
         torch.cuda.synchronize()
-        err = max_abs_err(got, plain)
-        assert err == 0, f"K4 on {name} disagrees with its plain version: max_abs_err {err}"
-        out[name] = dict(shape=[f.L, n], max_abs_err=err)
-        if name == "Fr":
-            out[name].update(ms=graph_time_ms(lambda: mont_mul(f, a, b), 50),
-                             eager_ms=cuda_time_ms(lambda: mont_mul(f, a, b), 50),
-                             plain_ms=cuda_time_ms(lambda: f.mul(a, b), 5))
-        log(f"K4 mont_mul: bit-exact at {name} ({f.L}, {n})")
+        err = max(max_abs_err(g, want) for g in got)
+        assert err == 0, f"K4 disagrees with its plain version at {what}: max_abs_err {err}"
+        checked.append(what)
+
+    for name, f, more in (("Fr", fr, K4_TIMED_LANES), ("Fp", fp, (16,)), ("mock", mock, ())):
+        for n in (1, 13, wave_lanes(f.L) + 1) + more:
+            check(f, *edge_limbs(f, n, rng, device), f"{name} ({f.L}, {n})")
+    x = lazy_limbs(fr, B_PROOFS * 1024, rng, device).reshape(fr.L, B_PROOFS, 1024)
+    for s in (1, 5, 10):
+        m, half = 1 << s, 1 << (s - 1)
+        tw = lazy_limbs(fr, half, rng, device).reshape(fr.L, 1, 1, half)
+        check(fr, x.reshape(fr.L, B_PROOFS, 1024 // m, m)[..., half:], tw, f"NTT stage {s}'s upper half")
+    check(fr, x, fr.limbs_const(12345, x), "a mul_const constant")
+    log(f"K4 mont_mul: bit-exact at {len(checked)} cases: " + "; ".join(checked))
+    out = {"max_abs_err": 0, "cases": checked, "timed": {}}
+    for n in K4_TIMED_LANES:
+        a, b = lazy_limbs(fr, n, rng, device), lazy_limbs(fr, n, rng, device)
+        out["timed"][n] = dict(ms=graph_time_ms(lambda: mont_mul(fr, a, b), 20, 20),
+                               eager_ms=cuda_time_ms(lambda: mont_mul(fr, a, b), 50),
+                               plain_ms=cuda_time_ms(lambda: fr.mul_plain(a, b), 5))
+    one = torch.zeros(1, dtype=torch.int32, device=device)
+    out["graph_floor_ms"] = graph_time_ms(lambda: one.add_(1), 20, 20)
     return out
+
+
+def inv_muls(f) -> int:
+    """Multiplies of LimbField.inv: pow_const(p - 2) squares once per bit and
+    multiplies once per set bit."""
+    e = f.p - 2
+    return e.bit_length() + bin(e).count("1")
+
+
+def k4_counts(exp: int) -> dict:
+    """K4 launches (= LimbField.mul calls on the card) of the main path, by
+    part, for a 2^exp domain; the counts are the code's:
+    h(x) pipeline (groth16/prover._h_pipeline): 7 NTTs of exp stages, one
+      multiply each (ops/domain.ntt); 1/n after each of the 4 inverse NTTs;
+      4 distribute_powers of 2 exp + 1 (a multiply and a square per
+      doubling, then the product); the z^-1 scaling; the coset product:
+      15 exp + 10;
+    a step (BatchProver.step): to_mont, the h(x) pipeline, std_from_mont;
+    decode (DeviceGroup.decode_points): a G1 point set is an Fp inversion,
+      x and y times z^-1 and 2 from_mont; a G2 point set the norm (one
+      stacked product), its inversion, 2 products by it, x and y times z^-1
+      (one stacked Karatsuba product each) and 4 from_mont; prove_batch
+      decodes two G1 sets and one G2 set;
+    the sequential proof (create_random_proof): the h(x) pipeline, from_mont
+      of h, and one decode per MSM with at least 4 dense bases (the
+      device's; groth16/engine._MSM_DEVICE_THRESHOLD): h, l and the aux
+      parts of a and b on G1, b's aux part on G2; the input parts (2 bases)
+      stay on the host."""
+    from bellman_mpc_tpu_torch.fields.bls12_381 import fp
+
+    h = 7 * exp + 4 + 4 * (2 * exp + 1) + 1 + 1
+    g1 = inv_muls(fp) + 2 + 2
+    g2 = 1 + inv_muls(fp) + 2 + 2 + 4
+    return {"step": 1 + h + 1, "decode": 2 * g1 + g2, "sequential": h + 1 + 4 * g1 + g2}
 
 
 def int32_ops_per_s() -> float:
@@ -391,18 +478,24 @@ def bound(nbytes: float, int_ops: float, int_rate: float, tensor_ops: float = 0.
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
+def mont_mul_bound(int_rate: float, lanes: int):
+    """K4's (bound_ms, bound_by) at (24, lanes): a, b read and the output
+    written once, or the Fr Montgomery product's operations."""
+    from bellman_mpc_tpu_torch.fields.bls12_381 import fr
+
+    return bound(3 * fr.L * lanes * 4, mont_mul_ops(fr) * lanes, int_rate)
+
+
 def kernel_bounds(int_rate: float, k3_lanes: int, fold_lanes: dict, mont_lanes: int):
     """bound_ms and bound_by of each kernel at the shapes it was timed at:
     each input read once and each output written once (int32 words; the 71
     real RNS channels, not the 80-row padded tiles), and the RNS multiplies'
     (K1 11, K2 33) or the Fr Montgomery product's operations."""
-    from bellman_mpc_tpu_torch.fields.bls12_381 import fr
-
     row = 71 * 4
     tc, i32 = rns_mul_ops()
     g1, g2 = fold_lanes["rns_fold_window"], fold_lanes["rns_fold_window_g2"]
     return {
-        "mont_mul": bound(3 * fr.L * mont_lanes * 4, mont_mul_ops(fr) * mont_lanes, int_rate),
+        "mont_mul": mont_mul_bound(int_rate, mont_lanes),
         "rns_mul_many": bound(3 * row * k3_lanes, i32 * k3_lanes, int_rate, tc * k3_lanes),
         "rns_fold_window": bound((8 * row + 4) * g1, 11 * i32 * g1, int_rate, 11 * tc * g1),
         "rns_fold_window_g2": bound((16 * row + 4) * g2, 33 * i32 * g2, int_rate, 33 * tc * g2),
@@ -428,14 +521,15 @@ def time_steps(bp, args, n: int = 3):
 
 def counted(kl, fn):
     """Run fn() with every launch count set to 0 just before it; returns
-    (result, the counts read just after, seconds)."""
+    (result, the counts read just after, seconds).  `mont_mul_plain` counts
+    the calls of K4's plain version on a CUDA tensor."""
     import torch
 
     kl.reset_launch_counts()
     t0 = time.perf_counter()
     out = fn()
     torch.cuda.synchronize()
-    return out, dict(kl.launch_counts), time.perf_counter() - t0
+    return out, dict(kl.launch_counts, mont_mul_plain=kl.plain_counts["mont_mul"]), time.perf_counter() - t0
 
 
 def main() -> int:
@@ -505,11 +599,13 @@ def main() -> int:
     prng = random.Random(0)
     wit = [(prng.randrange(host.p), prng.randrange(host.p)) for _ in range(B_PROOFS)]
     circuits = [MiMCDemo(constants, xl, xr) for xl, xr in wit]
+    k4 = k4_counts(bp.m.bit_length() - 1)
     proofs, counts, prove_s = counted(kl, lambda: bp.prove_batch(circuits))
     log(f"prove_batch B={B_PROOFS}: {prove_s:.3f} s, launches {counts}")
     W = windows(8)
     assert counts["rns_fold_window"] == 4 * W and counts["rns_fold_window_g2"] == W, counts
-    assert counts["mont_mul"] == 1 and counts["rns_mul_many"] == 0, counts
+    assert counts["mont_mul"] == k4["step"] + k4["decode"] and counts["rns_mul_many"] == 0, (counts, k4)
+    assert counts["mont_mul_plain"] == 0, counts
     pvk = prepare_verifying_key(engine, params.vk)
     t0 = time.perf_counter()
     for (xl, xr), proof in zip(wit, proofs):
@@ -519,6 +615,12 @@ def main() -> int:
 
     # phase 6: timings
     args = bp.encode_circuits(circuits)
+    out, step_counts, _ = counted(kl, lambda: bp.step(*args))
+    assert step_counts["mont_mul"] == k4["step"] and step_counts["mont_mul_plain"] == 0, step_counts
+    decoded, decode_counts, decode_s = counted(kl, lambda: bp.decode(*out))
+    assert decode_counts["mont_mul"] == k4["decode"] and decode_counts["mont_mul_plain"] == 0, decode_counts
+    assert decoded == proofs
+    log(f"step: K4 {step_counts['mont_mul']} launches; decode: K4 {decode_counts['mont_mul']}, {decode_s:.3f} s")
     steps = time_steps(bp, args)
     step_s = statistics.median(steps)
     fold_times = time_fold_windows(bp, rng)
@@ -530,7 +632,7 @@ def main() -> int:
     seq, counts_seq, seq_s = counted(
         kl, lambda: create_random_proof(engine, MiMCDemo(constants, *wit[0]), params))
     log(f"sequential proof: {seq_s:.3f} s, launches {counts_seq}")
-    assert counts_seq["mont_mul"] == 1, counts_seq
+    assert counts_seq["mont_mul"] == k4["sequential"] and counts_seq["mont_mul_plain"] == 0, counts_seq
     assert counts_seq["rns_fold_window"] == counts_seq["rns_fold_window_g2"] == 0, counts_seq
     assert seq == proofs[0], "the sequential proof differs from batch proof 0"
     assert proof_to_bytes(seq) == proof_to_bytes(proofs[0]) and len(proof_to_bytes(seq)) == 192
@@ -557,7 +659,8 @@ def main() -> int:
     log(f"RangeDemo m={bp_r.m} tables {[(n, k, c) for n, k, c, _ in r_info]}: "
         f"prove_batch {r_prove_s:.3f} s, launches {r_counts}")
     cs = {n: c for n, _, c, _ in r_info}
-    assert r_counts["mont_mul"] == 1, r_counts
+    k4_r = k4_counts(bp_r.m.bit_length() - 1)
+    assert r_counts["mont_mul"] == k4_r["step"] + k4_r["decode"] and r_counts["mont_mul_plain"] == 0, r_counts
     assert r_counts["rns_fold_window"] == sum(windows(cs[n]) for n in ("h", "l", "a", "b1")), r_counts
     assert r_counts["rns_fold_window_g2"] == windows(cs["b2"]), r_counts
     r_pvk = prepare_verifying_key(engine, r_params.vk)
@@ -565,7 +668,7 @@ def main() -> int:
         verify_proof(engine, r_pvk, proof, [1 + d])
     r_seq, r_seq_counts, r_seq_s = counted(
         kl, lambda: create_random_proof(engine, range_circ(ds[0]), r_params))
-    assert r_seq_counts["mont_mul"] == 1, r_seq_counts
+    assert r_seq_counts["mont_mul"] == k4_r["sequential"] and r_seq_counts["mont_mul_plain"] == 0, r_seq_counts
     assert r_seq == r_proofs[0], "RangeDemo sequential proof differs from batch proof 0"
     assert proof_to_bytes(r_seq) == proof_to_bytes(r_proofs[0])
     print(f"RangeDemo: verified {len(r_proofs)}/{B_PROOFS}; sequential proof == batch proof 0",
@@ -573,24 +676,26 @@ def main() -> int:
 
     # the kernels' line
     int_rate = int32_ops_per_s()
+    k4_timed = checks["mont_mul"]["timed"]
+    k4_bounds = {n: mont_mul_bound(int_rate, n) for n in k4_timed}
     bounds = kernel_bounds(int_rate, checks["rns_mul_many"]["lanes"],
-                           {k: v["lanes"] for k, v in fold_times.items()},
-                           checks["mont_mul"]["Fr"]["shape"][1])
+                           {k: v["lanes"] for k, v in fold_times.items()}, K4_TIMED_LANES[-1])
     timed = {
-        "mont_mul": checks["mont_mul"]["Fr"], "rns_mul_many": checks["rns_mul_many"],
+        "mont_mul": k4_timed[K4_TIMED_LANES[-1]], "rns_mul_many": checks["rns_mul_many"],
         "rns_fold_window": fold_times["rns_fold_window"],
         "rns_fold_window_g2": fold_times["rns_fold_window_g2"],
     }
     errs = {
-        "mont_mul": max(v["max_abs_err"] for v in checks["mont_mul"].values()),
+        "mont_mul": checks["mont_mul"]["max_abs_err"],
         "rns_mul_many": checks["rns_mul_many"]["max_abs_err"],
         "rns_fold_window": max(checks["rns_fold_window"]["max_abs_err"],
                                fold_times["rns_fold_window"]["max_abs_err"]),
         "rns_fold_window_g2": max(checks["rns_fold_window_g2"]["max_abs_err"],
                                   fold_times["rns_fold_window_g2"]["max_abs_err"]),
     }
-    # launches in one B = 16 step of the main path; K3's standalone kernel is
-    # never launched there (its multiply runs inside K1 and K2), so its count is 0
+    # launches in the main path's run (prove_batch: one B = 16 step and its
+    # decode); K3's standalone kernel is never launched there (its multiply
+    # runs inside K1 and K2), so its count is 0
     launches = {k: counts[k] for k in SOURCES}
     kernels = []
     for name in ("mont_mul", "rns_mul_many", "rns_fold_window", "rns_fold_window_g2"):
@@ -601,10 +706,16 @@ def main() -> int:
             "ms": timed[name]["ms"], "plain_ms": timed[name]["plain_ms"],
             "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
         })
+        if name == "mont_mul":  # per part of the run, and at both timed shapes
+            kernels[-1].update(
+                launches_step=step_counts["mont_mul"], launches_decode=decode_counts["mont_mul"],
+                graph_floor_ms=checks["mont_mul"]["graph_floor_ms"],
+                shapes=[{"shape": [24, n], "ms": t["ms"], "eager_ms": t["eager_ms"], "plain_ms": t["plain_ms"],
+                         "bound_ms": k4_bounds[n][0], "bound_by": k4_bounds[n][1]} for n, t in k4_timed.items()])
     total_s = time.perf_counter() - t_start
     print(json.dumps({
         "setup_s": setup_s, "prover_build_s": prover_build_s, "prove_batch_s": prove_s,
-        "step_s": step_s, "steps_s": steps, "proofs_per_s": B_PROOFS / step_s,
+        "step_s": step_s, "steps_s": steps, "proofs_per_s": B_PROOFS / step_s, "decode_s": decode_s,
         "sequential_proof_s": seq_s, "verify_all_s": verify_s,
         "range_setup_s": r_setup_s, "range_prover_build_s": r_build_s,
         "range_prove_batch_s": r_prove_s, "range_sequential_proof_s": r_seq_s,

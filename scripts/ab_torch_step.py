@@ -4,17 +4,22 @@ on one card.
 One worker process per checkout builds that checkout's kernels and runs
 chip_smoke.py's main-path configuration (MiMC-322, constants seed 42,
 BatchProver "rns", B = 16 witnesses from seed 0); both stay resident on the
-card.  The workers then take turns: in each round every checkout times one
-step (`BatchProver.step`, synchronised, host clock) and then its kernels,
-the base first in even rounds and the other checkout first in odd rounds,
-while the worker not being timed waits on its pipe.  Kernels: K1 and K2 on
-gathered table points (chip_smoke.fold_window_cases), K3 on (71, 16384)
-random residues and K4 on (24, 16384) Fr limbs (chip_smoke.lazy_limbs),
-each as its device time from CUDA graph replays
-(chip_smoke.graph_time_ms) and as its eager time (chip_smoke.cuda_time_ms,
-which also carries the wrapper's Python).  Before any timing, both
-checkouts must give the same step output and the same kernel outputs, bit
-for bit, and the launch counts of one step.
+card.  Each worker first counts one step's kernel launches and, with
+torch.profiler, its PyTorch (aten) ops.  The workers then take turns: in
+each round every checkout times one step (`BatchProver.step`, synchronised,
+host clock), the decode of that step's output (`BatchProver.decode`) and
+then its kernels, the base first in even rounds and the other checkout first
+in odd rounds, while the worker not being timed waits on its pipe.
+Kernels: K1 and K2 on gathered table points
+(chip_smoke.fold_window_cases), K3 on (71, 16384) random residues and K4
+on (24, 8192) and (24, 16384) Fr limbs (chip_smoke.lazy_limbs), each as its
+device time from CUDA graph replays (chip_smoke.graph_time_ms; K4 with 20
+calls per graph) and as its eager time (chip_smoke.cuda_time_ms, which also
+carries the wrapper's Python).  Last, each checkout makes one sequential
+proof (`create_random_proof` of witness 0), timed.  Before any timing, both
+checkouts must give the same step output, the same decoded proofs and the
+same kernel outputs, bit for bit; their launch counts are reported, not
+compared, since a change may route work through other kernels.
 
     git archive <commit> | tar -x -C trees/base   # a directory .gitignore lists
     python3 scripts/ab_torch_step.py --base trees/base [--rounds 10]
@@ -42,6 +47,7 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parents[1]
 OUT = ROOT / "chiprun_out"
 K3_LANES = 16384
+K4_LANES = (8192, 16384)
 REPS = 50
 
 
@@ -78,7 +84,7 @@ def worker(tree: str, device: str, mimc_rounds: int) -> int:
     assert Path(pkg.__file__).resolve().is_relative_to(Path(tree).resolve()), pkg.__file__
     from bellman_mpc_tpu_torch.curves import rns_point as rpt
     from bellman_mpc_tpu_torch.fields.bls12_381 import fr
-    from bellman_mpc_tpu_torch.groth16 import Bls12Engine, generate_random_parameters
+    from bellman_mpc_tpu_torch.groth16 import Bls12Engine, create_random_proof, generate_random_parameters
     from bellman_mpc_tpu_torch.models import MiMCDemo, mimc_constants
     from bellman_mpc_tpu_torch.ops import fold_kernels as fk
     from bellman_mpc_tpu_torch.ops import kernel_lib as kl
@@ -106,16 +112,24 @@ def worker(tree: str, device: str, mimc_rounds: int) -> int:
     out = bp.step(*args)
     sync()
     counts = dict(kl.launch_counts)
+    acts = [torch.profiler.ProfilerActivity.CPU]
+    with torch.profiler.profile(activities=acts) as prof:
+        bp.step(*args)
+        sync()
+    ops = sum(e.count for e in prof.key_averages() if e.key.startswith("aten::"))
     rng = random.Random(2024)
     cases = {name: kern for name, (_, kern, _) in cs.fold_window_cases(bp, rng).items()}
     f = rpt.default_rns_field()
     xs = f.encode([rng.randrange(f.p) for _ in range(K3_LANES)], device=dev).res
     ys = f.encode([rng.randrange(f.p) for _ in range(K3_LANES)], device=dev).res
     cases["rns_mul_many"] = lambda: fk.rns_mul_many(f, xs, ys)
-    a4, b4 = (cs.lazy_limbs(fr, K3_LANES, rng, dev) for _ in range(2))
-    cases["mont_mul"] = lambda: mont_mul(fr, a4, b4)
+    for lanes in K4_LANES:
+        a4, b4 = (cs.lazy_limbs(fr, lanes, rng, dev) for _ in range(2))
+        cases[f"mont_mul_{lanes}"] = lambda a4=a4, b4=b4: mont_mul(fr, a4, b4)
+    proofs = bp.decode(*out)
     proto.write(json.dumps({
-        "ready_s": time.perf_counter() - t0, "launches": counts, "step": _digest(out),
+        "ready_s": time.perf_counter() - t0, "launches": counts, "aten_ops_per_step": ops,
+        "step": _digest(out), "proofs": repr(proofs),
         "kernels": {name: _digest(kern()) for name, kern in cases.items()},
     }) + "\n")
     for line in sys.stdin:
@@ -126,10 +140,22 @@ def worker(tree: str, device: str, mimc_rounds: int) -> int:
             bp.step(*args)
             sync()
             reply = {"step_s": time.perf_counter() - t0}
+        elif cmd == "decode":
+            sync()
+            t0 = time.perf_counter()
+            bp.decode(*out)
+            sync()
+            reply = {"decode_s": time.perf_counter() - t0}
         elif cmd == "kernels":
-            reply = {name: {"ms": cs.graph_time_ms(kern, REPS) if cuda else None,
+            reply = {name: {"ms": cs.graph_time_ms(kern, REPS, 20 if name.startswith("mont_mul") else 1)
+                            if cuda else None,
                             "eager_ms": cs.cuda_time_ms(kern, REPS) if cuda else None}
                      for name, kern in cases.items()}
+        elif cmd == "sequential":
+            t0 = time.perf_counter()
+            seq = create_random_proof(engine, circuits[0], params)
+            sync()
+            reply = {"sequential_proof_s": time.perf_counter() - t0, "equals_batch_proof_0": seq == proofs[0]}
         else:
             break
         proto.write(json.dumps(reply) + "\n")
@@ -188,14 +214,18 @@ def main() -> int:
     try:
         ready = {name: recv(name) for name in trees}
         print(json.dumps({"ready": ready}), flush=True)
-        for key in ("launches", "step", "kernels"):
+        for key in ("step", "proofs", "kernels"):
             assert ready["base"][key] == ready["change"][key], f"the checkouts differ in {key}"
         turns = []
         for r in range(a.rounds):
             for name in (("base", "change") if r % 2 == 0 else ("change", "base")):
-                turn = {"round": r, "tree": name, **ask(name, "step"), "kernels": ask(name, "kernels")}
+                turn = {"round": r, "tree": name, **ask(name, "step"), **ask(name, "decode"),
+                        "kernels": ask(name, "kernels")}
                 turns.append(turn)
                 print(json.dumps(turn), flush=True)
+        sequential = {name: ask(name, "sequential") for name in trees}
+        print(json.dumps({"sequential": sequential}), flush=True)
+        assert all(v["equals_batch_proof_0"] for v in sequential.values()), sequential
     finally:
         for name, p in procs.items():
             if p.poll() is None:
@@ -209,8 +239,11 @@ def main() -> int:
     # per metric: each checkout's spread over the rounds, and in how many
     # rounds (one pair each) the change read lower than the base
     summary = {"trees": trees, "rounds": a.rounds, "device": smi or a.device,
-               "launches": ready["change"]["launches"], "metrics": {}}
-    keys = [("step_s",)] + [(k, fld) for k in turns[0]["kernels"] for fld in ("ms", "eager_ms")]
+               "launches": {name: ready[name]["launches"] for name in trees},
+               "aten_ops_per_step": {name: ready[name]["aten_ops_per_step"] for name in trees},
+               "sequential_proof_s": {name: sequential[name]["sequential_proof_s"] for name in trees},
+               "metrics": {}}
+    keys = [("step_s",), ("decode_s",)] + [(k, fld) for k in turns[0]["kernels"] for fld in ("ms", "eager_ms")]
     for key in keys:
         per = {name: [t[key[0]] if len(key) == 1 else t["kernels"][key[0]][key[1]]
                       for t in turns if t["tree"] == name] for name in trees}

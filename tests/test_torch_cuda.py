@@ -6,9 +6,10 @@ Imports neither jax nor the reference, so it runs on the GPU machine:
 
 Every test here needs a CUDA card and skips without one.  Lane counts that
 are not a multiple of the RNS kernels' 8-lane tile or the limb multiply's
-256-thread block exercise the ragged edge; "wave+1" is one lane past a full
+64-thread block exercise the ragged edge; "wave+1" is one lane past a full
 wave of the kernel's own persistent blocks (K1, K2: 8-lane tiles, K3: units
-of 6 tiles), so one block takes a second, ragged unit.
+of 6 tiles), so one block takes a second, ragged unit, or for K4 one lane
+past the blocks the card holds at once.
 """
 
 import random
@@ -22,6 +23,8 @@ from bellman_mpc_tpu_torch.fields.bls12_381 import fp, fr
 from bellman_mpc_tpu_torch.fields.mock import mock
 from bellman_mpc_tpu_torch.ops import fold_kernels as fk
 from bellman_mpc_tpu_torch.ops import kernel_lib
+from bellman_mpc_tpu_torch.fields.limb import LimbField
+from bellman_mpc_tpu_torch.ops import mont_kernels as mk
 from bellman_mpc_tpu_torch.ops.mont_kernels import mont_mul
 
 torch.set_num_threads(1)  # tiny CPU tensors: threads only contend with the other test workers
@@ -158,24 +161,70 @@ def _limbs(f, vals, dev):
                         dtype=torch.int32, device=dev)
 
 
+def _k4_lanes(f, lanes):
+    return mk.wave_lanes(f.L) + 1 if lanes == "wave+1" else lanes
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("lanes", [13, 257])
+@pytest.mark.parametrize("lanes", [1, 13, 257, "wave+1"])
 @pytest.mark.parametrize("f", [mock, fp, fr], ids=["mock", "Fp", "Fr"])
 def test_k4_matches_plain(dev, f, lanes):
+    """K4 and the dispatched LimbField.mul against the plain version, with
+    the edge operands 0, 1, p-1, p, 2p-1 in every pairing at the first lanes."""
+    lanes = _k4_lanes(f, lanes)
     rng = random.Random(f.L * 1000 + lanes)
-    near_2p = [2 * f.p - 1 - rng.randrange(1 << 8) for _ in range(lanes // 2)]
-    va = near_2p + [rng.randrange(2 * f.p) for _ in range(lanes - len(near_2p))]
-    vb = [rng.randrange(2 * f.p) for _ in range(lanes - 1)] + [2 * f.p - 1]
+    edges = [0, 1, f.p - 1, f.p, 2 * f.p - 1]
+    pairs = [(x, y) for x in edges for y in edges][:lanes]
+    va = [x for x, _ in pairs] + [2 * f.p - 1 - rng.randrange(1 << 8) if i % 2 else rng.randrange(2 * f.p)
+                                  for i in range(lanes - len(pairs))]
+    vb = [y for _, y in pairs] + [rng.randrange(2 * f.p) for _ in range(lanes - len(pairs))]
     a, b = _limbs(f, va, dev), _limbs(f, vb, dev)
+    want = f.mul_plain(a, b)
     before = kernel_lib.launch_counts["mont_mul"]
     got = mont_mul(f, a, b)
+    via_mul = f.mul(a, b)
     torch.cuda.synchronize()
-    assert kernel_lib.launch_counts["mont_mul"] == before + 1
-    assert torch.equal(got, f.mul(a, b))  # the plain version
+    assert kernel_lib.launch_counts["mont_mul"] == before + 2
+    assert torch.equal(got, want) and torch.equal(via_mul, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("f", [fp, fr], ids=["Fp", "Fr"])
+def test_k4_strided_and_broadcast_operands(dev, f):
+    """The call sites' operands, read in place: an NTT stage's upper half
+    against its (L, 1, 1, half) twiddles, a mul_const broadcast, the
+    components of an (L, 2, B) Fp2 stack, and a view of three lane levels
+    (which the wrapper copies)."""
+    rng = random.Random(f.L)
+    x = _limbs(f, [rng.randrange(2 * f.p) for _ in range(16 * 64)], dev).reshape(f.L, 16, 64)
+    for s in (1, 3, 6):
+        m, half = 1 << s, 1 << (s - 1)
+        v = x.reshape(f.L, 16, 64 // m, m)[..., half:]
+        tw = _limbs(f, [rng.randrange(f.p) for _ in range(half)], dev).reshape(f.L, 1, 1, half)
+        assert torch.equal(f.mul(v, tw), f.mul_plain(v, tw))
+        assert torch.equal(f.mul(tw, v), f.mul_plain(v, tw))
+    assert torch.equal(f.mul_const(x, 12345), f.mul_plain(x, f.limbs_const(12345 * f.R % f.p, x)))
+    st = x[:, :2].reshape(f.L, 2, 64)
+    assert torch.equal(f.mul(st[:, 0], st[:, 1]), f.mul_plain(st[:, 0], st[:, 1]))
+    z = x.reshape(f.L, 4, 4, 64)[:, :, 1:, 1:]
+    assert mk.lane_map(z, z.shape) is None
+    assert torch.equal(f.mul(z, f.mont_one((1, 1, 1), dev)), f.mul_plain(z, f.mont_one((1, 1, 1), dev)))
 
 
 @pytest.mark.cuda
 def test_k4_rejects_strided_input(dev):
+    """Strided views are now read in place (previous test); what the wrapper
+    still rejects: another dtype, mixed devices, an L without a kernel, and
+    shapes that do not broadcast."""
     x = torch.zeros((fr.L, 16), dtype=torch.int32, device=dev)
+    assert torch.equal(mont_mul(fr, x[:, ::2], x[:, ::2]), torch.zeros_like(x[:, ::2]))
     with pytest.raises(ValueError):
-        mont_mul(fr, x[:, ::2], x[:, ::2])
+        mont_mul(fr, x.long(), x.long())
+    with pytest.raises(ValueError):
+        mont_mul(fr, x, x.cpu())
+    with pytest.raises(ValueError):
+        mont_mul(fr, x, x[:, :4])
+    f5 = LimbField((1 << 50) - 27)  # L = 6: no kernel
+    y = torch.zeros((f5.L, 4), dtype=torch.int32, device=dev)
+    with pytest.raises(ValueError):
+        mont_mul(f5, y, y)
