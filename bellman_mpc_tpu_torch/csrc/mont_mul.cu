@@ -30,7 +30,7 @@
 // Bounds: t < 3p < 2^(32N + 1) after the whole-word steps, so N + 1 words
 // hold it; every 64-bit accumulator stays below 2^64.
 //
-// What bounded PR 2's design: it ran the TPU kernel's algorithm, about
+// What bounded the first design: it ran the TPU kernel's algorithm, about
 // 1,650 integer operations per lane on 11-bit limbs at L = 24, one thread
 // per lane in 256-thread blocks: 32 blocks for 132 SMs at the h(x)
 // pipeline's 8192 lanes, half of one warp at decode's 16.  What this
@@ -40,10 +40,10 @@
 // lane's latency (the loads, the carry chains, the store) plus the launch:
 // on the H100 it takes about 0.003 ms at 512 lanes and barely more at
 // 16384.  Two designs measured against it were slower at every shape of
-// the port (PERF.md, PR 6): 2, 4 or 8 threads per lane, each owning a few
-// words of the accumulator and passing m, the shifted word and carries
-// with __shfl_sync; and PTX carry-flag chains (mad.lo.cc / madc.hi.cc) in
-// place of the 64-bit accumulators.
+// the port (PERF.md, K4's findings): 2, 4 or 8 threads per lane, each
+// owning a few words of the accumulator and passing m, the shifted word
+// and carries with __shfl_sync; and PTX carry-flag chains (mad.lo.cc /
+// madc.hi.cc) in place of the 64-bit accumulators.
 //
 // Operands are read through a limb stride and a two-level lane index with
 // strides (0 broadcasts), so the call sites' views and broadcast constants
