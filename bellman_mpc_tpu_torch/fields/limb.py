@@ -17,12 +17,16 @@ representation of a value the reference computes too, so the reference's CPU
 "scan" strategy and this one agree limb for limb.
 
 Constants live on the CPU and are copied to a tensor's device on first use
-there (no module-level device state).
+there (no module-level device state).  The lazy columns' bound proofs are
+pure functions of host tuples; each is worked out once per distinct bound
+vector (`_product_hi`, `_fold_hi`, `_add_hi`, `_sub_plan`, `_reduce_plan`)
+and its asserts hold for every call that reuses it.
 """
 
 from __future__ import annotations
 
-from typing import Dict, List, Sequence, Tuple
+import functools
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -70,7 +74,7 @@ class LimbField:
 
     def _vec(self, values: Sequence[int], device) -> torch.Tensor:
         """Cached 1-D int32 constant on `device`."""
-        key = (tuple(int(v) for v in values), str(torch.device(device)))
+        key = (tuple(values), str(device))
         t = self._cache.get(key)
         if t is None:
             t = torch.tensor(key[0], dtype=torch.int32, device=device)
@@ -322,32 +326,22 @@ class LimbField:
         lhs = torch.stack([a for a, _ in pairs], dim=1)
         rhs = torch.stack([b for _, b in pairs], dim=1)
         cols = self.mul_cols(lhs, rhs)  # (2L, k, *B)
-        out = []
-        for i, (da, db) in enumerate(dmax_pairs):
-            hi = tuple(int(x) for x in np.convolve(
-                np.asarray(da, object), np.asarray(db, object)
-            )) + (0,)
-            assert max(hi) < (1 << 31), "product columns overflow int32"
-            out.append(LazyCols(self, cols[:, i], hi))
-        return out
+        return [LazyCols(self, cols[:, i], _product_hi(tuple(da), tuple(db)))
+                for i, (da, db) in enumerate(dmax_pairs)]
 
     def lazy_reduce_many(self, lcs: Sequence["LazyCols"], wide: bool = False) -> List[torch.Tensor]:
         """Reduce k LazyCols through ONE stacked Montgomery reduction."""
         cols = torch.stack([lc.cols for lc in lcs], dim=1)
-        hi = tuple(max(lc.hi[i] for lc in lcs) for i in range(2 * self.L))
+        hi = _max_hi(tuple(lc.hi for lc in lcs))
         r = LazyCols(self, cols, hi).reduce(wide=wide)
         return [r[:, i] for i in range(len(lcs))]
 
     def fold_digits(self, arr: torch.Tensor, dvec: Tuple[int, ...]):
-        """One value-preserving carry fold of an (L, *B) digit tensor."""
-        b = LIMB_BITS
-        assert sum(d << (b * i) for i, d in enumerate(dvec)) < self.R
-        arr = (arr & LIMB_MASK) + _shift_down(arr >> b, 0)
-        out = tuple(
-            min(dvec[i], LIMB_MASK) + (dvec[i - 1] >> b if i else 0)
-            for i in range(len(dvec))
-        )
-        return arr, out
+        """One value-preserving carry fold of an (L, *B) digit tensor (the
+        value must fit L limbs, so the top carry is zero)."""
+        assert len(dvec) == self.L
+        arr = (arr & LIMB_MASK) + _shift_down(arr >> LIMB_BITS, 0)
+        return arr, _fold_hi(tuple(dvec), 1)
 
 
 class LazyFp2:
@@ -371,6 +365,10 @@ class LazyFp2:
     def __rmul__(self, k: int) -> "LazyFp2":
         return self.scale(k)
 
+    def mul_by_xi(self) -> "LazyFp2":
+        """Times xi = 1 + u: the integer column combine (re - im, re + im)."""
+        return LazyFp2(self.re - self.im, self.re + self.im)
+
 
 class LazyCols:
     """Unreduced Montgomery product columns with host-side bound proofs.
@@ -386,14 +384,10 @@ class LazyCols:
         self.hi = hi
 
     def fold(self, steps: int = 1) -> "LazyCols":
-        b = LIMB_BITS
-        n = len(self.hi)
-        assert sum(h << (b * i) for i, h in enumerate(self.hi)) < 1 << (b * n)
-        cols, hi = self.cols, list(self.hi)
+        cols = self.cols
         for _ in range(steps):
-            cols = (cols & LIMB_MASK) + _shift_down(cols >> b, 0)
-            hi = [min(hi[i], LIMB_MASK) + (hi[i - 1] >> b if i else 0) for i in range(n)]
-        return LazyCols(self.f, cols, tuple(hi))
+            cols = (cols & LIMB_MASK) + _shift_down(cols >> LIMB_BITS, 0)
+        return LazyCols(self.f, cols, _fold_hi(self.hi, steps))
 
     def _folded_to(self, limit: int) -> "LazyCols":
         out = self
@@ -403,31 +397,29 @@ class LazyCols:
 
     def __add__(self, other: "LazyCols") -> "LazyCols":
         a, b = self, other
-        if max(x + y for x, y in zip(a.hi, b.hi)) >= (1 << 31):
+        hi = _add_hi(a.hi, b.hi)
+        if hi is None:
             a = a._folded_to(1 << 29)
             b = b._folded_to(1 << 29)
-        return LazyCols(a.f, a.cols + b.cols, tuple(x + y for x, y in zip(a.hi, b.hi)))
+            hi = _add_hi(a.hi, b.hi)
+        return LazyCols(a.f, a.cols + b.cols, hi)
 
     def __sub__(self, other: "LazyCols") -> "LazyCols":
         f = self.f
-        b = LIMB_BITS
         me, oth = self, other
-        if max(x + 2 * y for x, y in zip(me.hi, oth.hi)) >= (1 << 31) - (1 << 12):
+        plan = _sub_plan(f, me.hi, oth.hi)
+        if plan is None:
             me = me._folded_to(1 << 28)
             oth = oth._folded_to(1 << 28)
-        # Offset Q = 0 (mod p) whose columns dominate oth.hi.
-        v = sum(h << (b * i) for i, h in enumerate(oth.hi))
-        corr = (-v) % f.p
-        q = list(oth.hi)
-        for i in range(f.L):
-            q[i] += (corr >> (b * i)) & LIMB_MASK
+            plan = _sub_plan(f, me.hi, oth.hi)
+        q, hi = plan
         qa = f._bc(f._vec(q, me.cols.device), me.cols)
-        return LazyCols(f, me.cols - oth.cols + qa, tuple(a + qi for a, qi in zip(me.hi, q)))
+        return LazyCols(f, me.cols - oth.cols + qa, hi)
 
     def scale(self, k: int) -> "LazyCols":
         assert k >= 0
         out = self if k == 0 else self._folded_to(((1 << 31) - 1) // k)
-        return LazyCols(out.f, out.cols * k, tuple(h * k for h in out.hi))
+        return LazyCols(out.f, out.cols * k, _scale_hi(out.hi, k))
 
     def __rmul__(self, k: int) -> "LazyCols":
         return self.scale(k)
@@ -436,40 +428,117 @@ class LazyCols:
         """ONE Montgomery reduction -> lazy element (<2p, canonical digits),
         with the reference's host-side proof obligations (value bound, int32
         REDC growth, fold schedule)."""
-        f = self.f
-        b = LIMB_BITS
-        L = f.L
-        T = sum(h << (b * i) for i, h in enumerate(self.hi))
-        limit = 3 * f.p * f.R if wide else f.p * f.R
-        assert T < limit, "lazy accumulation exceeds the REDC value bound"
-
-        def _simulate(hi):
-            w = list(hi)
-            carry = 0
-            for i in range(L):
-                ti = w[i] + carry
-                peak = ti + LIMB_MASK * f.p0
-                if peak >= (1 << 31):
-                    return None
-                carry = peak >> b
-                for j in range(1, L):
-                    w[i + j] += LIMB_MASK * f._p_list[j]
-                    if w[i + j] >= (1 << 31):
-                        return None
-            r_hi = w[L:] + [0]
-            r_hi[0] += carry
-            return r_hi
-
+        folds, steps = _reduce_plan(self.f, self.hi, wide)
         lc = self
-        r_hi = _simulate(lc.hi)
-        while r_hi is None:
+        for _ in range(folds):
             lc = lc.fold()
-            r_hi = _simulate(lc.hi)
-        h = max(r_hi)
-        steps = 0
-        while h > 4094:
-            h = LIMB_MASK + (h >> b)
-            steps += 1
         # wide=True admits T < 3pR (REDC output < 4p); like the reference,
         # no conditional subtraction follows, so raw limbs stay identical.
-        return f.redc_cols(lc.cols, fold_steps=max(steps, 1))
+        return self.f.redc_cols(lc.cols, fold_steps=steps)
+
+
+# ------------------------------------------------ host-side bound proofs
+# Pure functions of the tracked bound tuples: one evaluation (asserts
+# included) per distinct bound vector, shared by every later call.
+_BOUND_CACHE = 1 << 14
+
+
+@functools.lru_cache(maxsize=_BOUND_CACHE)
+def _product_hi(da: Tuple[int, ...], db: Tuple[int, ...]) -> Tuple[int, ...]:
+    """Column bounds of the product of two digit vectors (2L columns)."""
+    hi = tuple(int(x) for x in np.convolve(
+        np.asarray(da, object), np.asarray(db, object)
+    )) + (0,)
+    assert max(hi) < (1 << 31), "product columns overflow int32"
+    return hi
+
+
+@functools.lru_cache(maxsize=_BOUND_CACHE)
+def _fold_hi(hi: Tuple[int, ...], steps: int) -> Tuple[int, ...]:
+    """Column bounds after `steps` carry folds (the value must fit the
+    columns, so the top carry is zero)."""
+    b = LIMB_BITS
+    n = len(hi)
+    assert sum(h << (b * i) for i, h in enumerate(hi)) < 1 << (b * n)
+    out = list(hi)
+    for _ in range(steps):
+        out = [min(out[i], LIMB_MASK) + (out[i - 1] >> b if i else 0) for i in range(n)]
+    return tuple(out)
+
+
+@functools.lru_cache(maxsize=_BOUND_CACHE)
+def _max_hi(his: Tuple[Tuple[int, ...], ...]) -> Tuple[int, ...]:
+    """Column-wise maximum of several bound vectors (a stacked reduction)."""
+    return tuple(max(col) for col in zip(*his))
+
+
+@functools.lru_cache(maxsize=_BOUND_CACHE)
+def _scale_hi(hi: Tuple[int, ...], k: int) -> Tuple[int, ...]:
+    """Bounds of the columns times k."""
+    return tuple(h * k for h in hi)
+
+
+@functools.lru_cache(maxsize=_BOUND_CACHE)
+def _add_hi(a: Tuple[int, ...], b: Tuple[int, ...]) -> Optional[Tuple[int, ...]]:
+    """Bounds of a column sum, or None when it could overflow int32."""
+    hi = tuple(x + y for x, y in zip(a, b))
+    return None if max(hi) >= (1 << 31) else hi
+
+
+@functools.lru_cache(maxsize=_BOUND_CACHE)
+def _sub_plan(f: LimbField, me: Tuple[int, ...], oth: Tuple[int, ...]):
+    """(offset Q, result bounds) of a column difference, or None when the
+    operands must be folded first.  Q = 0 (mod p) and its columns dominate
+    oth, so the difference stays non-negative."""
+    b = LIMB_BITS
+    if max(x + 2 * y for x, y in zip(me, oth)) >= (1 << 31) - (1 << 12):
+        return None
+    v = sum(h << (b * i) for i, h in enumerate(oth))
+    corr = (-v) % f.p
+    q = list(oth)
+    for i in range(f.L):
+        q[i] += (corr >> (b * i)) & LIMB_MASK
+    return tuple(q), tuple(a + qi for a, qi in zip(me, q))
+
+
+@functools.lru_cache(maxsize=_BOUND_CACHE)
+def _reduce_plan(f: LimbField, hi: Tuple[int, ...], wide: bool) -> Tuple[int, int]:
+    """(carry folds before the REDC, fold steps after it) for columns with
+    bounds hi: checks the value bound T < pR (3pR when wide), folds until
+    every intermediate of the REDC recurrence provably fits int32, then
+    counts the folds that bring its output digits to <= 4094."""
+    b = LIMB_BITS
+    L = f.L
+    T = sum(h << (b * i) for i, h in enumerate(hi))
+    limit = 3 * f.p * f.R if wide else f.p * f.R
+    assert T < limit, "lazy accumulation exceeds the REDC value bound"
+
+    def _simulate(hi):
+        w = list(hi)
+        carry = 0
+        for i in range(L):
+            ti = w[i] + carry
+            peak = ti + LIMB_MASK * f.p0
+            if peak >= (1 << 31):
+                return None
+            carry = peak >> b
+            for j in range(1, L):
+                w[i + j] += LIMB_MASK * f._p_list[j]
+                if w[i + j] >= (1 << 31):
+                    return None
+        r_hi = w[L:] + [0]
+        r_hi[0] += carry
+        return r_hi
+
+    folds = 0
+    r_hi = _simulate(hi)
+    while r_hi is None:
+        hi = _fold_hi(hi, 1)
+        folds += 1
+        r_hi = _simulate(hi)
+    h = max(r_hi)
+    steps = 0
+    while h > 4094:
+        h = LIMB_MASK + (h >> b)
+        steps += 1
+    return folds, max(steps, 1)

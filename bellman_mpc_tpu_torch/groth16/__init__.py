@@ -12,6 +12,7 @@ from .serialize import (
 )
 from .types import Parameters, PreparedVerifyingKey, Proof, VerifyingKey
 from .verifier import prepare_verifying_key, verify_proof
+from .verifier_batch import BatchVerifier, Item
 
 __all__ = [
     "DensityTracker", "KeypairAssembly", "ProvingAssignment", "Bls12Engine",
@@ -20,5 +21,5 @@ __all__ = [
     "params_from_bytes", "params_to_bytes", "proof_from_bytes", "proof_to_bytes",
     "vk_from_bytes", "vk_to_bytes",
     "Parameters", "PreparedVerifyingKey", "Proof", "VerifyingKey",
-    "prepare_verifying_key", "verify_proof",
+    "prepare_verifying_key", "verify_proof", "BatchVerifier", "Item",
 ]

@@ -1,13 +1,17 @@
 """The BLS12-381 pairing engine of the port.
 
-Counterpart of bellman_mpc_tpu/groth16/engine.py and groth16/bls12.py for
-the prover paths: protocol-level group elements are host affine points
-(tuples / None); the bulk fixed-base batches of setup (`batch_mul`) and the
-sequential prover's MSMs (`msm`) run as device ladders (ops/msm.py) on the
-engine's `device`, and pairings run on the host oracle
-(curves/pairing_host.py) — the route the reference takes on the CPU
-(bls12.py:149-155).  The engine runs on the first CUDA card unless it is
-given another device; constructing it does not touch the card.
+Counterpart of bellman_mpc_tpu/groth16/engine.py and groth16/bls12.py:
+protocol-level group elements are host affine points (tuples / None); the
+bulk fixed-base batches of setup (`batch_mul`) and the sequential prover's
+MSMs (`msm`) run as device ladders (ops/msm.py) on the engine's `device`.
+Pairings take the reference's routes (bls12.py:110-158): a multi-Miller
+loop of 4 or more terms is one device batch (ops/pairing.py) whose values
+are multiplied on the host, fewer terms run on the host oracle
+(curves/pairing_host.py); `pairing_product_is_one` is one device program
+on a CUDA engine and the host loop on a CPU engine, as the reference's CPU
+backend does.  The route depends on `device` alone: a CUDA engine without a
+card raises.  The engine runs on the first CUDA card unless it is given
+another device; constructing it does not touch the card.
 """
 
 from __future__ import annotations
@@ -20,6 +24,8 @@ from ..curves import pairing_host as ph
 from ..curves.device import DeviceGroup, g1_device, g2_device
 from ..fields import bls12_381 as bc
 from ..fields.tower import FP12_ONE, fp12_eq, fp12_is_one, fp12_mul
+from ..ops import pairing as dp
+from ..ops import tower as dtw
 from ..ops.msm import batch_mul_host, msm_host
 
 _MSM_DEVICE_THRESHOLD = 4  # below this a host loop beats kernel dispatch
@@ -90,7 +96,7 @@ class _BlsGroup:
 
 
 class Bls12Engine:
-    """BLS12-381: scalar field, the two source groups, host pairing."""
+    """BLS12-381: scalar field, the two source groups, the pairing."""
 
     name = "bls12_381"
 
@@ -102,10 +108,16 @@ class Bls12Engine:
         self.g2 = _BlsGroup(g2_device, "G2", device)
 
     def multi_miller_loop(self, terms: Sequence[Tuple[object, object]]):
+        """prod_i f_{Q_i}(P_i): at 4 or more terms all Miller loops run as
+        one device batch and their values are multiplied on the host."""
+        terms = [(p, q) for p, q in terms if p is not None and q is not None]
+        if len(terms) < _MSM_DEVICE_THRESHOLD:
+            return ph.multi_miller_loop(terms)
+        m = dp._bucket(len(terms))
+        enc = dp.encode_pairs([t[0] for t in terms], [t[1] for t in terms], m, self.device)
         acc = FP12_ONE
-        for p, q in terms:
-            if p is not None and q is not None:
-                acc = fp12_mul(acc, ph.miller_loop(p, q))
+        for v in dtw.fp12_decode(dp.miller_loop_batch(*enc))[: len(terms)]:
+            acc = fp12_mul(acc, v)
         return acc
 
     def final_exponentiation(self, ml):
@@ -115,8 +127,16 @@ class Bls12Engine:
         return self.final_exponentiation(self.multi_miller_loop([(p, q)]))
 
     def pairing_product_is_one(self, terms) -> bool:
-        """prod_i e(p_i, q_i) == 1 (verifier.rs:49-56 shape), host loop."""
-        return self.gt_is_one(self.final_exponentiation(self.multi_miller_loop(terms)))
+        """prod_i e(p_i, q_i) == 1 (verifier.rs:49-56 shape): one device
+        program (ops/pairing.pairing_product_is_one) on a CUDA engine, the
+        host loop on a CPU engine."""
+        terms = [(p, q) for p, q in terms if p is not None and q is not None]
+        if not terms:
+            return True
+        if self.device.type != "cuda":
+            return self.gt_is_one(ph.final_exponentiation(ph.multi_miller_loop(terms)))
+        return dp.pairing_product_is_one(
+            [t[0] for t in terms], [t[1] for t in terms], self.device)
 
     def gt_eq(self, a, b) -> bool:
         return fp12_eq(a, b)

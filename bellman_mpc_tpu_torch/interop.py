@@ -3,7 +3,9 @@
 Both packages keep host group elements as plain Python ints (G1: (x, y),
 G2: ((x0, x1), (y0, y1)), identity None), so a CRS or a proof converts by
 rebuilding its dataclasses.  Device arrays cross as numpy arrays: a JAX
-array goes in through `tensor`, a tensor comes out through `.numpy()`.
+array goes in through `tensor`, a tensor comes out through `.numpy()`; the
+nested Fp2/Fp6/Fp12 tuples of the device tower cross through `tree_from`
+and `tree_to`.
 This module imports neither jax nor the reference package: it only reads
 the attributes of the objects it is handed.
 """
@@ -51,3 +53,18 @@ def proof_from(proof) -> Proof:
 def tensor(arr, device="cpu") -> torch.Tensor:
     """A numpy-convertible array (e.g. a JAX array) -> a tensor of its own."""
     return torch.from_numpy(np.array(arr, copy=True)).to(device)
+
+
+def tree_from(tree, device="cpu"):
+    """Nested tuples (or lists) of numpy-convertible arrays, e.g. a
+    reference Fp12 element, -> the same nesting of tensors."""
+    if isinstance(tree, (tuple, list)):
+        return tuple(tree_from(t, device) for t in tree)
+    return tensor(tree, device)
+
+
+def tree_to(tree):
+    """Nested tuples of tensors -> the same nesting of numpy arrays."""
+    if isinstance(tree, (tuple, list)):
+        return tuple(tree_to(t) for t in tree)
+    return tree.detach().cpu().numpy()

@@ -26,17 +26,27 @@ Phases (each raises on failure; nothing is caught):
   5. prove_batch on B=16 random witnesses, launch counts checked (K1 132
      times, K2 33 times, K4 once for every limb multiply: k4_counts derives
      162 per step and 1847 per decode; the plain multiply never on a CUDA
-     tensor), all 16 proofs verified by the port's verifier;
+     tensor); the 16 proofs verified on the card by one BatchVerifier.verify,
+     proof 0 by verify_proof, a batch with one wrong public input rejected
+     (each with K4's count from pairing_k4_counts, no plain multiply, no K1
+     or K2), and the 16 again by the host oracle's loop (a CPU engine),
+     timed;
   6. timings: one step and one decode counted apart, table build, median
      step of 3, proofs/s, decode seconds, and one fold window's kernel time
      beside its plain version's at the main path's shapes (gathered from the
      real tables);
   7. the sequential create_random_proof of witness 0 (K4 3236 times, no
      fold kernel) equals batch proof 0 in its 192 serialized bytes and
-     verifies;
+     verifies on the card;
   8. RangeDemo (the chip gate's setup and witnesses, n = 4, B = 16):
-     setup, BatchProver(rns), 16/16 verified, proof 0 equal to the
-     sequential proof, launch counts checked.
+     setup, BatchProver(rns), 16/16 verified by one BatchVerifier on the
+     card, proof 0 equal to the sequential proof, launch counts checked;
+  9. pairings at scale: pairing_batch on 8 pairs (one with the identity)
+     equal to the host oracle's pairings; pairing_eq_batch on 2048
+     equations of points made by the engine's device ladders, every third
+     false, giving the known answers (the host encode timed apart);
+     pairing_product_is_one timed at buckets 8 and 32; K4 counts checked
+     as in phase 5.
 
 Prints the kernels' JSON line (every kernel with its launches on the main
 path, error, times, bound and library yardstick), the card's name and power
@@ -432,6 +442,150 @@ def k4_counts(exp: int) -> dict:
     return {"step": 1 + h + 1, "decode": 2 * g1 + g2, "sequential": h + 1 + 4 * g1 + g2}
 
 
+def pairing_k4_counts() -> dict:
+    """K4 launches (= LimbField.mul calls on the card) of the pairing entry
+    points (ops/pairing.py); the counts are the code's:
+    a Miller loop: the line's two fp2_mul_fp products (2 Fp products each)
+      in every doubling and every add step of _RUNS (63 and 5); its point
+      updates and Fp12 products are lazy columns, which launch no K4;
+    a final exponentiation (exact or x-chain): its one fp12_inv, whose
+      fp2_inv makes 2 squares, an Fp inversion and 2 products; the ladders,
+      Frobenius maps and Fp12 products are lazy columns;
+    fp12_decode: one from_mont per Fp coordinate (12);
+    pairing_product_is_one: a Miller loop and a final exponentiation, and so
+      are verify_proof and BatchVerifier.verify on a CUDA engine when the IC
+      sum has fewer than 4 bases (the host's; every circuit here has one
+      public input); pairing_eq_batch: two Miller loops, one final
+      exponentiation; pairing_batch: a Miller loop, a final exponentiation
+      and a decode."""
+    from bellman_mpc_tpu_torch.fields.bls12_381 import fp
+    from bellman_mpc_tpu_torch.ops.pairing import _RUNS
+
+    miller = 4 * sum(n for n, _ in _RUNS) + 4 * sum(1 for _, add in _RUNS if add)
+    final_exp = 2 + inv_muls(fp) + 2
+    return {"miller": miller, "final_exp": final_exp, "product_is_one": miller + final_exp,
+            "eq_batch": 2 * miller + final_exp, "pairing_batch": miller + final_exp + 12}
+
+
+def check_pairing_counts(counts: dict, k4: int, what: str) -> None:
+    """A pairing run launched K4 exactly k4 times, ran no plain multiply on
+    the card and no fold kernel."""
+    assert counts["mont_mul"] == k4, (what, counts, k4)
+    assert counts["mont_mul_plain"] == 0, (what, counts)
+    assert counts["rns_fold_window"] == counts["rns_fold_window_g2"] == counts["rns_mul_many"] == 0, (
+        what, counts)
+
+
+def raises(exc, fn) -> bool:
+    """True when fn() raises exc (any other exception propagates)."""
+    try:
+        fn()
+    except exc:
+        return True
+    return False
+
+
+def batch_verify(engine, vk, proofs, inputs, seed: int) -> None:
+    """One BatchVerifier.verify over all proofs (raises InvalidProof)."""
+    from bellman_mpc_tpu_torch.groth16 import BatchVerifier
+
+    bv = BatchVerifier()
+    for proof, inp in zip(proofs, inputs):
+        bv.queue((proof, inp))
+    bv.verify(engine, vk, random.Random(seed))
+
+
+def verify_on_card(kl, engine, params, pvk, proofs, inputs) -> dict:
+    """Phase 5's verification: the batch of proofs by one BatchVerifier on
+    the card, proof 0 by verify_proof, a batch with one wrong public input
+    rejected (each counted), then the same proofs by the host oracle's
+    loop (a CPU engine), timed."""
+    from bellman_mpc_tpu_torch.groth16 import Bls12Engine, verify_proof
+    from bellman_mpc_tpu_torch.r1cs import InvalidProof
+
+    k4 = pairing_k4_counts()["product_is_one"]
+    assert len(params.vk.ic) < 4, "the IC sum would run a device MSM: its K4 count is not in k4"
+    _, c, batch_s = counted(kl, lambda: batch_verify(engine, params.vk, proofs, inputs, 1))
+    check_pairing_counts(c, k4, "BatchVerifier.verify")
+    _, c, single_s = counted(kl, lambda: verify_proof(engine, pvk, proofs[0], inputs[0]))
+    check_pairing_counts(c, k4, "verify_proof")
+    wrong = [list(x) for x in inputs]
+    wrong[len(wrong) // 2][0] += 1
+    rejected, c, bad_s = counted(
+        kl, lambda: raises(InvalidProof, lambda: batch_verify(engine, params.vk, proofs, wrong, 2)))
+    assert rejected, "a batch with a wrong public input verified"
+    check_pairing_counts(c, k4, "BatchVerifier.verify (wrong input)")
+    host = Bls12Engine("cpu")
+    t0 = time.perf_counter()
+    for proof, inp in zip(proofs, inputs):
+        verify_proof(host, pvk, proof, inp)
+    host_s = time.perf_counter() - t0
+    return {"batch_verify_s": batch_s, "verify_single_s": single_s, "batch_reject_s": bad_s,
+            "host_verify_s": host_s, "k4_per_verify": k4}
+
+
+def pairings_at_scale(kl, engine, device, n_eq: int = 2048, rng=None) -> dict:
+    """Phase 9: pairing_batch on 8 pairs (the 4th G1 point the identity)
+    equal to the host oracle; pairing_eq_batch on n_eq equations
+    e(a G1, b G2) == e(c G1, G2) with c = ab, or ab + 1 in every third
+    (false) one, the points made by the engine's device ladders, against
+    the known truth, with the host encode timed apart; pairing_product_is_one
+    on 4 and 18 terms of true equations (buckets 8 and 32).  Every call
+    counted (pairing_k4_counts)."""
+    import torch
+
+    from bellman_mpc_tpu_torch.curves import pairing_host as ph
+    from bellman_mpc_tpu_torch.curves.host import G1, G2
+    from bellman_mpc_tpu_torch.fields.bls12_381 import R
+    from bellman_mpc_tpu_torch.ops import pairing as dp
+
+    rng = rng or random.Random(9)
+    k4 = pairing_k4_counts()
+    out = {}
+    torch.cuda.reset_peak_memory_stats()
+    g1s = engine.g1.batch_mul(G1.generator, [rng.randrange(1, R) for _ in range(8)])
+    g2s = engine.g2.batch_mul(G2.generator, [rng.randrange(1, R) for _ in range(8)])
+    g1s[3] = None
+    vals, c, out["pairing_batch_8_s"] = counted(kl, lambda: dp.pairing_batch(g1s, g2s, device))
+    check_pairing_counts(c, k4["pairing_batch"], "pairing_batch")
+    t0 = time.perf_counter()
+    assert vals == [ph.pairing(p, q) for p, q in zip(g1s, g2s)], "pairing_batch != host oracle"
+    out["host_pairing_8_s"] = time.perf_counter() - t0
+
+    sa = [rng.randrange(1, R) for _ in range(n_eq)]
+    sb = [rng.randrange(1, R) for _ in range(n_eq)]
+    truth = [i % 3 != 2 for i in range(n_eq)]
+    sc = [a * b % R + (0 if t else 1) for a, b, t in zip(sa, sb, truth)]
+    t0 = time.perf_counter()
+    g1_pts = engine.g1.batch_mul(G1.generator, sa + sc)
+    a1, a2 = g1_pts[:n_eq], g1_pts[n_eq:]
+    b1 = engine.g2.batch_mul(G2.generator, sb)
+    b2 = [G2.generator] * n_eq
+    out["eq_points_s"] = time.perf_counter() - t0
+    m = dp._bucket(n_eq)
+    t0 = time.perf_counter()
+    dp.encode_pairs(a1, b1, m, device)
+    dp.encode_pairs([G1.neg(p) for p in a2], b2, m, device)
+    torch.cuda.synchronize()
+    out["eq_encode_s"] = time.perf_counter() - t0
+    eqs, c, out["pairing_eq_s"] = counted(kl, lambda: dp.pairing_eq_batch(a1, b1, a2, b2, device))
+    check_pairing_counts(c, k4["eq_batch"], "pairing_eq_batch")
+    assert eqs.tolist() == truth, "pairing_eq_batch disagrees with the known answers"
+    out.update(n_eq=n_eq, equations_per_s=n_eq / out["pairing_eq_s"])
+
+    for n_terms in (4, 18):  # buckets 8 and 32: true equations, split into terms
+        idx = range(0, 3 * (n_terms // 2), 3)  # every third equation is false
+        g1_terms = [a1[i] for i in idx] + [G1.neg(a2[i]) for i in idx]
+        g2_terms = [b1[i] for i in idx] + [G2.generator] * len(idx)
+        ok, c, out[f"product_is_one_{dp._bucket(n_terms)}_s"] = counted(
+            kl, lambda: dp.pairing_product_is_one(g1_terms, g2_terms, device))
+        assert ok is True, "a product of true equations is not one"
+        check_pairing_counts(c, k4["product_is_one"], "pairing_product_is_one")
+    out["pairing_peak_mem_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    out["k4"] = k4
+    return out
+
+
 def int32_ops_per_s() -> float:
     """The card's peak rate of 32-bit integer instructions: SMs x 64 per
     clock x the maximum SM clock that nvidia-smi reports."""
@@ -607,11 +761,11 @@ def main() -> int:
     assert counts["mont_mul"] == k4["step"] + k4["decode"] and counts["rns_mul_many"] == 0, (counts, k4)
     assert counts["mont_mul_plain"] == 0, counts
     pvk = prepare_verifying_key(engine, params.vk)
-    t0 = time.perf_counter()
-    for (xl, xr), proof in zip(wit, proofs):
-        verify_proof(engine, pvk, proof, [mimc(host, xl, xr, constants)])
-    verify_s = time.perf_counter() - t0
-    print(f"verified {len(proofs)}/{B_PROOFS} proofs ({verify_s:.3f} s, host pairing)", flush=True)
+    inputs = [[mimc(host, xl, xr, constants)] for xl, xr in wit]
+    ver = verify_on_card(kl, engine, params, pvk, proofs, inputs)
+    print(f"verified {len(proofs)}/{B_PROOFS} proofs on the card: one BatchVerifier "
+          f"{ver['batch_verify_s']:.3f} s, proof 0 alone {ver['verify_single_s']:.3f} s, wrong input "
+          f"rejected; host oracle {ver['host_verify_s']:.3f} s", flush=True)
 
     # phase 6: timings
     args = bp.encode_circuits(circuits)
@@ -636,8 +790,10 @@ def main() -> int:
     assert counts_seq["rns_fold_window"] == counts_seq["rns_fold_window_g2"] == 0, counts_seq
     assert seq == proofs[0], "the sequential proof differs from batch proof 0"
     assert proof_to_bytes(seq) == proof_to_bytes(proofs[0]) and len(proof_to_bytes(seq)) == 192
-    verify_proof(engine, pvk, seq, [mimc(host, *wit[0], constants)])
-    print("sequential proof == batch proof 0 (192 bytes), verified", flush=True)
+    _, c, seq_verify_s = counted(kl, lambda: verify_proof(engine, pvk, seq, inputs[0]))
+    check_pairing_counts(c, ver["k4_per_verify"], "verify_proof (sequential proof)")
+    print(f"sequential proof == batch proof 0 (192 bytes), verified on the card ({seq_verify_s:.3f} s)",
+          flush=True)
 
     # phase 8: RangeDemo, the chip gate's second shape
     def range_circ(d):
@@ -663,16 +819,35 @@ def main() -> int:
     assert r_counts["mont_mul"] == k4_r["step"] + k4_r["decode"] and r_counts["mont_mul_plain"] == 0, r_counts
     assert r_counts["rns_fold_window"] == sum(windows(cs[n]) for n in ("h", "l", "a", "b1")), r_counts
     assert r_counts["rns_fold_window_g2"] == windows(cs["b2"]), r_counts
-    r_pvk = prepare_verifying_key(engine, r_params.vk)
-    for d, proof in zip(ds, r_proofs):
-        verify_proof(engine, r_pvk, proof, [1 + d])
+    assert len(r_params.vk.ic) < 4
+    _, c, r_verify_s = counted(
+        kl, lambda: batch_verify(engine, r_params.vk, r_proofs, [[1 + d] for d in ds], 3))
+    check_pairing_counts(c, ver["k4_per_verify"], "BatchVerifier.verify (RangeDemo)")
     r_seq, r_seq_counts, r_seq_s = counted(
         kl, lambda: create_random_proof(engine, range_circ(ds[0]), r_params))
     assert r_seq_counts["mont_mul"] == k4_r["sequential"] and r_seq_counts["mont_mul_plain"] == 0, r_seq_counts
     assert r_seq == r_proofs[0], "RangeDemo sequential proof differs from batch proof 0"
     assert proof_to_bytes(r_seq) == proof_to_bytes(r_proofs[0])
-    print(f"RangeDemo: verified {len(r_proofs)}/{B_PROOFS}; sequential proof == batch proof 0",
-          flush=True)
+    print(f"RangeDemo: verified {len(r_proofs)}/{B_PROOFS} by one BatchVerifier on the card "
+          f"({r_verify_s:.3f} s); sequential proof == batch proof 0", flush=True)
+
+    # phase 9: pairings at scale
+    peak_mem_gib = torch.cuda.max_memory_allocated() / 2**30  # phases 4-8
+    del bp_r
+    torch.cuda.empty_cache()
+    pa = pairings_at_scale(kl, engine, device)
+    log(f"pairings: {pa}")
+    verify_line = {
+        "verify_single_s": ver["verify_single_s"], "batch_verify_16_s": ver["batch_verify_s"],
+        "batch_reject_16_s": ver["batch_reject_s"], "host_verify_16_s": ver["host_verify_s"],
+        "sequential_verify_s": seq_verify_s, "range_batch_verify_16_s": r_verify_s,
+        "pairing_batch_8_s": pa["pairing_batch_8_s"], "host_pairing_8_s": pa["host_pairing_8_s"],
+        "pairing_eq_2048_s": pa["pairing_eq_s"], "equations_per_s": pa["equations_per_s"],
+        "eq_encode_2048_s": pa["eq_encode_s"], "eq_points_2048_s": pa["eq_points_s"],
+        "product_is_one_8_s": pa["product_is_one_8_s"], "product_is_one_32_s": pa["product_is_one_32_s"],
+        "pairing_peak_mem_gib": pa["pairing_peak_mem_gib"], "k4_per_call": pa["k4"],
+    }
+    print("verify and pairing: " + json.dumps(verify_line) + f" on {smi}", flush=True)
 
     # the kernels' line
     int_rate = int32_ops_per_s()
@@ -709,6 +884,8 @@ def main() -> int:
         if name == "mont_mul":  # per part of the run, and at both timed shapes
             kernels[-1].update(
                 launches_step=step_counts["mont_mul"], launches_decode=decode_counts["mont_mul"],
+                launches_verify=ver["k4_per_verify"], launches_batch_verify=ver["k4_per_verify"],
+                launches_eq_2048=pa["k4"]["eq_batch"],
                 graph_floor_ms=checks["mont_mul"]["graph_floor_ms"],
                 shapes=[{"shape": [24, n], "ms": t["ms"], "eager_ms": t["eager_ms"], "plain_ms": t["plain_ms"],
                          "bound_ms": k4_bounds[n][0], "bound_by": k4_bounds[n][1]} for n, t in k4_timed.items()])
@@ -716,11 +893,13 @@ def main() -> int:
     print(json.dumps({
         "setup_s": setup_s, "prover_build_s": prover_build_s, "prove_batch_s": prove_s,
         "step_s": step_s, "steps_s": steps, "proofs_per_s": B_PROOFS / step_s, "decode_s": decode_s,
-        "sequential_proof_s": seq_s, "verify_all_s": verify_s,
+        "sequential_proof_s": seq_s, "batch_verify_16_s": ver["batch_verify_s"],
+        "verify_single_s": ver["verify_single_s"], "host_verify_16_s": ver["host_verify_s"],
+        "pairing_batch_8_s": pa["pairing_batch_8_s"], "pairing_eq_2048_s": pa["pairing_eq_s"],
         "range_setup_s": r_setup_s, "range_prover_build_s": r_build_s,
         "range_prove_batch_s": r_prove_s, "range_sequential_proof_s": r_seq_s,
         "range_tables": [[n, k, c] for n, k, c, _ in r_info], "B": B_PROOFS, "m": m,
-        "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30,
+        "peak_mem_gib": peak_mem_gib,
         "int32_ops_per_s": int_rate, "total_s": total_s,
     }), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -107,7 +107,8 @@ sys.modules["jax"] = None
 from bellman_mpc_tpu_torch import groth16 as tg
 from bellman_mpc_tpu_torch.fields.mock import mock
 from bellman_mpc_tpu_torch.models import AndDemo, MiMCDemo, RangeDemo, RangeDemoExplicit, mimc, mimc_constants
-from bellman_mpc_tpu_torch.ops import kernel_lib, mont_kernels
+from bellman_mpc_tpu_torch.ops import kernel_lib, mont_kernels, pairing, tower
+from bellman_mpc_tpu_torch.groth16 import verifier_batch
 from bellman_mpc_tpu_torch.parallel import BatchProver
 eng = tg.Bls12Engine("cpu")
 host = eng.fr_host

@@ -18,13 +18,16 @@ from fractions import Fraction
 import pytest
 import torch
 
+from bellman_mpc_tpu_torch.curves import pairing_host as ph
 from bellman_mpc_tpu_torch.curves import rns_point as rpt
-from bellman_mpc_tpu_torch.fields.bls12_381 import fp, fr
+from bellman_mpc_tpu_torch.curves.host import G1, G2
+from bellman_mpc_tpu_torch.fields.bls12_381 import R, fp, fr
 from bellman_mpc_tpu_torch.fields.mock import mock
 from bellman_mpc_tpu_torch.ops import fold_kernels as fk
 from bellman_mpc_tpu_torch.ops import kernel_lib
 from bellman_mpc_tpu_torch.fields.limb import LimbField
 from bellman_mpc_tpu_torch.ops import mont_kernels as mk
+from bellman_mpc_tpu_torch.ops import pairing
 from bellman_mpc_tpu_torch.ops.mont_kernels import mont_mul
 
 torch.set_num_threads(1)  # tiny CPU tensors: threads only contend with the other test workers
@@ -228,3 +231,37 @@ def test_k4_rejects_strided_input(dev):
     y = torch.zeros((f5.L, 4), dtype=torch.int32, device=dev)
     with pytest.raises(ValueError):
         mont_mul(f5, y, y)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [3, 9])
+def test_device_pairing_matches_host_oracle(dev, n):
+    """pairing_batch on the card at n = 3 (bucket 8) and a ragged n = 9
+    (bucket 32), lane 1's G1 point the identity, equals the host oracle;
+    every limb multiply launched K4 and none ran the plain version."""
+    rng = random.Random(n)
+    g1s = [G1.mul(G1.generator, rng.randrange(1, R)) for _ in range(n)]
+    g2s = [G2.mul(G2.generator, rng.randrange(1, R)) for _ in range(n)]
+    g1s[1] = None
+    kernel_lib.reset_launch_counts()
+    got = pairing.pairing_batch(g1s, g2s, device=dev)
+    assert kernel_lib.plain_counts["mont_mul"] == 0 and kernel_lib.launch_counts["mont_mul"] > 0
+    assert got == [ph.pairing(p, q) for p, q in zip(g1s, g2s)]
+
+
+@pytest.mark.cuda
+def test_device_pairing_equations(dev):
+    """pairing_product_is_one and pairing_eq_batch on the card give the
+    known answers, with no plain multiply."""
+    a, b = G1.mul(G1.generator, 9), G2.mul(G2.generator, 13)
+    kernel_lib.reset_launch_counts()
+    for k, want in ((117, True), (116, False)):
+        neg = G1.neg(G1.mul(G1.generator, k))
+        assert pairing.pairing_product_is_one([a, neg], [b, G2.generator], device=dev) is want
+    a7, b11 = G1.mul(G1.generator, 7), G2.mul(G2.generator, 11)
+    eqs = pairing.pairing_eq_batch(
+        [a7, a7, None], [b11, b11, b11],
+        [G1.mul(G1.generator, 77), G1.mul(G1.generator, 5), None], [G2.generator, G2.generator, b11],
+        device=dev)
+    assert eqs.tolist() == [True, False, True]
+    assert kernel_lib.plain_counts["mont_mul"] == 0
