@@ -1,5 +1,5 @@
 from .assembly import DensityTracker, KeypairAssembly, ProvingAssignment
-from .engine import Bls12Engine
+from .engine import DUMMY, Bls12Engine, DummyEngine, Engine, GroupAPI
 from .generator import DETERMINISTIC_TRAPDOOR, generate_parameters, generate_random_parameters
 from .prover import DETERMINISTIC_R, DETERMINISTIC_S, create_proof, create_random_proof
 from .serialize import (
@@ -15,7 +15,8 @@ from .verifier import prepare_verifying_key, verify_proof
 from .verifier_batch import BatchVerifier, Item
 
 __all__ = [
-    "DensityTracker", "KeypairAssembly", "ProvingAssignment", "Bls12Engine",
+    "DensityTracker", "KeypairAssembly", "ProvingAssignment",
+    "DUMMY", "Bls12Engine", "DummyEngine", "Engine", "GroupAPI",
     "DETERMINISTIC_TRAPDOOR", "generate_parameters", "generate_random_parameters",
     "DETERMINISTIC_R", "DETERMINISTIC_S", "create_proof", "create_random_proof",
     "params_from_bytes", "params_to_bytes", "proof_from_bytes", "proof_to_bytes",

@@ -42,11 +42,24 @@ Phases (each raises on failure; nothing is caught):
      setup, BatchProver(rns), 16/16 verified by one BatchVerifier on the
      card, proof 0 equal to the sequential proof, launch counts checked;
   9. pairings at scale: pairing_batch on 8 pairs (one with the identity)
-     equal to the host oracle's pairings; pairing_eq_batch on 2048
+     equal to the host oracle's pairings; pairing_eq_batch on 30
      equations of points made by the engine's device ladders, every third
-     false, giving the known answers (the host encode timed apart);
+     false, giving the known answers (the host encode timed apart; phase
+     10c runs it at 12,288 lanes);
      pairing_product_is_one timed at buckets 8 and 32; K4 counts checked
-     as in phase 5.
+     as in phase 5;
+ 10. the trusted-setup ceremony (groth16/mpc.py): (a) setup, proofs and
+     verification on DummyEngine on the card for the mock tests' XorDemo,
+     AndDemo and AddDemo, equal to DummyEngine("cpu")'s, K4 at L = 2 only;
+     (b) generate_parameters_mpc(basis="lagrange") on AndDemo, byte for
+     byte generate_parameters' CRS under the deterministic trapdoor, its
+     proof verified on the card, a bad contribution rejected; (c) a
+     phase-1 contribution at 2048 powers (its points from one device
+     ladder per group) checked by verify_common_paramter (10,243
+     equations, one pairing_eq_batch of 12,288 lanes): accepted, and
+     rejected with two tau powers swapped; (d) the Lagrange transform
+     (engine.g1/g2.intt) of its first 1024 tau points equal to L_j(tau) G;
+     prints a `ceremony:` line with the times and K4 counts.
 
 Prints the kernels' JSON line (every kernel with its launches on the main
 path, error, times, bound and library yardstick), the card's name and power
@@ -439,7 +452,8 @@ def k4_counts(exp: int) -> dict:
     h = 7 * exp + 4 + 4 * (2 * exp + 1) + 1 + 1
     g1 = inv_muls(fp) + 2 + 2
     g2 = 1 + inv_muls(fp) + 2 + 2 + 4
-    return {"step": 1 + h + 1, "decode": 2 * g1 + g2, "sequential": h + 1 + 4 * g1 + g2}
+    return {"step": 1 + h + 1, "decode": 2 * g1 + g2, "sequential": h + 1 + 4 * g1 + g2,
+            "decode_g1": g1, "decode_g2": g2}
 
 
 def pairing_k4_counts() -> dict:
@@ -467,13 +481,18 @@ def pairing_k4_counts() -> dict:
             "eq_batch": 2 * miller + final_exp, "pairing_batch": miller + final_exp + 12}
 
 
+def check_no_fold(counts: dict, what: str) -> None:
+    """No plain multiply on the card and no fold or RNS kernel."""
+    assert counts["mont_mul_plain"] == 0, (what, counts)
+    assert counts["rns_fold_window"] == counts["rns_fold_window_g2"] == counts["rns_mul_many"] == 0, (
+        what, counts)
+
+
 def check_pairing_counts(counts: dict, k4: int, what: str) -> None:
     """A pairing run launched K4 exactly k4 times, ran no plain multiply on
     the card and no fold kernel."""
     assert counts["mont_mul"] == k4, (what, counts, k4)
-    assert counts["mont_mul_plain"] == 0, (what, counts)
-    assert counts["rns_fold_window"] == counts["rns_fold_window_g2"] == counts["rns_mul_many"] == 0, (
-        what, counts)
+    check_no_fold(counts, what)
 
 
 def raises(exc, fn) -> bool:
@@ -524,7 +543,7 @@ def verify_on_card(kl, engine, params, pvk, proofs, inputs) -> dict:
             "host_verify_s": host_s, "k4_per_verify": k4}
 
 
-def pairings_at_scale(kl, engine, device, n_eq: int = 2048, rng=None) -> dict:
+def pairings_at_scale(kl, engine, device, n_eq: int = 30, rng=None) -> dict:
     """Phase 9: pairing_batch on 8 pairs (the 4th G1 point the identity)
     equal to the host oracle; pairing_eq_batch on n_eq equations
     e(a G1, b G2) == e(c G1, G2) with c = ab, or ab + 1 in every third
@@ -583,6 +602,258 @@ def pairings_at_scale(kl, engine, device, n_eq: int = 2048, rng=None) -> dict:
         check_pairing_counts(c, k4["product_is_one"], "pairing_product_is_one")
     out["pairing_peak_mem_gib"] = torch.cuda.max_memory_allocated() / 2**30
     out["k4"] = k4
+    return out
+
+
+CEREMONY_POWERS = 2048  # the 2m tau powers of MiMC-322's Lagrange ceremony (m = 1024)
+LAGRANGE_M = 1024
+# the mock Groth16 tests' trapdoor and blinding (tests/test_groth16_mock.py, tests/mod.rs:302-307)
+MOCK_TRAPDOOR = (48577, 22580, 53332, 5481, 3673)
+MOCK_BLINDING = (27134, 17146)
+
+
+def mock_circuits() -> dict:
+    """The mock Groth16 tests' circuits (tests/test_groth16_mock.py:39-118)
+    on the port's r1cs, each with (a, b, public output) witnesses: XorDemo,
+    AndDemo (the port's models.AndDemo has the same constraints), AddDemo."""
+    from bellman_mpc_tpu_torch.fields.mock import MODULUS
+    from bellman_mpc_tpu_torch.models import AndDemo
+    from bellman_mpc_tpu_torch.r1cs import AssignmentMissing, Circuit
+
+    def need(v):
+        if v is None:
+            raise AssignmentMissing()
+        return v
+
+    class XorDemo(Circuit):
+        def __init__(self, a, b):
+            self.a, self.b = a, b
+
+        def synthesize(self, cs):
+            a = cs.alloc("a", lambda: int(need(self.a)))
+            cs.enforce("a_boolean", lambda lc: lc + cs.one() - a, lambda lc: lc + a, lambda lc: lc)
+            b = cs.alloc("b", lambda: int(need(self.b)))
+            cs.enforce("b_boolean", lambda lc: lc + cs.one() - b, lambda lc: lc + b, lambda lc: lc)
+            c = cs.alloc_input("c", lambda: int(need(self.a) ^ need(self.b)))
+            cs.enforce("c_xor", lambda lc: lc + a + a, lambda lc: lc + b, lambda lc: lc + a + b - c)
+
+    class AddDemo(Circuit):
+        def __init__(self, a, b):
+            self.a, self.b = a, b
+
+        def synthesize(self, cs):
+            a = cs.alloc("a", lambda: need(self.a))
+            b = cs.alloc("b", lambda: need(self.b))
+            c = cs.alloc_input("c", lambda: (need(self.a) + need(self.b)) % MODULUS)
+            cs.enforce("c_add", lambda lc: lc + a + b, lambda lc: lc + cs.one(), lambda lc: lc + c)
+
+    return {
+        "xor": (XorDemo, [(False, False, 0), (True, False, 1), (False, True, 1), (True, True, 0)]),
+        "and": (AndDemo, [(True, False, 0), (True, True, 1)]),
+        "add": (AddDemo, [(1, 3, 4), (5, MODULUS - 2, 3)]),
+    }
+
+
+def mock_on_card(kl, device) -> dict:
+    """Phase 10a: setup, proofs and verification on DummyEngine on the card
+    for the mock circuits; CRS and proofs equal DummyEngine("cpu")'s; a
+    wrong public input fails.  The mock field (L = 2) is the engine's only
+    limb field, so every K4 launch here is at L = 2: exp + 2 per setup (the
+    iFFT's exp stages and 1/n, the decode's from_mont) and 15 exp + 11 per
+    proof (the h(x) pipeline and the decode of h)."""
+    from bellman_mpc_tpu_torch.groth16 import (
+        DummyEngine,
+        create_proof,
+        generate_parameters,
+        prepare_verifying_key,
+        verify_proof,
+    )
+    from bellman_mpc_tpu_torch.r1cs import InvalidProof
+
+    card, cpu = DummyEngine(device), DummyEngine("cpu")
+    assert card.fr.L == 2 and card.device == device
+    p = card.fr_host.p
+    out = {"setup_s": 0.0, "proof_s": 0.0, "k4": 0, "proofs": 0}
+    for name, (circ, witnesses) in mock_circuits().items():
+        params, c, s = counted(kl, lambda: generate_parameters(card, circ(None, None), 1, 1, *MOCK_TRAPDOOR))
+        exp = len(params.h).bit_length()  # h has m - 1 elements
+        assert c["mont_mul"] == exp + 2, (name, c)
+        check_no_fold(c, f"mock setup {name}")
+        assert params == generate_parameters(cpu, circ(None, None), 1, 1, *MOCK_TRAPDOOR), name
+        out["setup_s"] += s
+        out["k4"] += c["mont_mul"]
+        pvk = prepare_verifying_key(card, params.vk)
+        for a, b, pub in witnesses:
+            proof, c, s = counted(kl, lambda: create_proof(card, circ(a, b), params, *MOCK_BLINDING))
+            assert c["mont_mul"] == 15 * exp + 11, (name, c)
+            check_no_fold(c, f"mock proof {name}")
+            assert proof == create_proof(cpu, circ(a, b), params, *MOCK_BLINDING), (name, a, b)
+            verify_proof(card, pvk, proof, [pub])
+            assert raises(InvalidProof, lambda: verify_proof(card, pvk, proof, [(pub + 1) % p]))
+            out["proof_s"] += s
+            out["k4"] += c["mont_mul"]
+            out["proofs"] += 1
+    return out
+
+
+def lagrange_ceremony(kl, engine) -> dict:
+    """Phase 10b: the canned 3+3-player ceremony end to end on AndDemo (4
+    constraints, m = 4, 8 powers), the reference's BLS ceremony test
+    (tests/test_mpc.py:261-298): generate_parameters_mpc in the Lagrange
+    basis gives generate_parameters' CRS under the deterministic trapdoor
+    byte for byte, and a proof from it verifies on the card; a bad list
+    contribution (mpc_bad_paramters_custom through paramter_list_excute)
+    raises CeremonyError.  A phase-1 contribution with tampered powers is
+    (c)'s rejection; the power basis runs in the CPU tests (on the card it
+    takes as long as the Lagrange ceremony)."""
+    from bellman_mpc_tpu_torch.groth16 import (
+        DETERMINISTIC_TRAPDOOR,
+        create_random_proof,
+        generate_parameters,
+        params_to_bytes,
+        prepare_verifying_key,
+        verify_proof,
+    )
+    from bellman_mpc_tpu_torch.groth16 import mpc
+    from bellman_mpc_tpu_torch.models import AndDemo
+
+    k4 = pairing_k4_counts()
+    t = DETERMINISTIC_TRAPDOOR
+    out = {}
+    direct, c, out["direct_setup_s"] = counted(kl, lambda: generate_parameters(
+        engine, AndDemo(None, None), engine.g1.generator(), engine.g2.generator(),
+        t["alpha"], t["beta"], t["gamma"], t["delta"], t["tau"]))
+    check_no_fold(c, "generate_parameters (AndDemo)")
+    lag, c, out["lagrange_s"] = counted(
+        kl, lambda: mpc.generate_parameters_mpc(engine, AndDemo(None, None), basis="lagrange"))
+    check_no_fold(c, "generate_parameters_mpc (lagrange)")
+    out["lagrange_k4"] = c["mont_mul"]
+    out["crs_bytes"] = len(params_to_bytes(lag))
+    assert params_to_bytes(lag) == params_to_bytes(direct), "the Lagrange ceremony's CRS != generate_parameters'"
+    proof = create_random_proof(engine, AndDemo(True, True), lag)
+    _, c, out["verify_s"] = counted(
+        kl, lambda: verify_proof(engine, prepare_verifying_key(engine, direct.vk), proof, [1]))
+    check_pairing_counts(c, k4["product_is_one"], "verify_proof (ceremony CRS)")
+
+    lst = mpc.init_parameter_list(engine)
+    lst = mpc.paramter_list_excute(engine, lst, mpc.mpc_common_paramters_custom_generator(engine, lst[-1], 5))
+    bad = mpc.mpc_bad_paramters_custom(engine, lst[-1], 7)
+    rejected, c, out["bad_reject_s"] = counted(
+        kl, lambda: raises(mpc.CeremonyError, lambda: mpc.paramter_list_excute(engine, lst, bad)))
+    assert rejected, "a bad contribution was accepted"
+    check_pairing_counts(c, k4["eq_batch"], "paramter_list_excute (bad)")
+    return out
+
+
+def lagrange_scalars(host, tau: int, m: int):
+    """L_j(tau) over the m-point domain, from the host closed form
+    L_j(tau) = w^j (tau^m - 1) / (m (tau - w^j))."""
+    p = host.p
+    w = host.nth_root_of_unity(m.bit_length() - 1)
+    z = (pow(tau, m, p) - 1) * host.inv(m) % p
+    lam, wj = [], 1
+    for _ in range(m):
+        lam.append(wj * z * host.inv((tau - wj) % p) % p)
+        wj = wj * w % p
+    return lam
+
+
+def contribution_check(kl, engine, n: int, m: int, rng: random.Random):
+    """Phase 10c: one phase-1 contribution at n powers from
+    initial_common_paramters, checked by verify_common_paramter: 4 + 4n +
+    n - 1 equations in one pairing_eq_batch, accepted; with two tau powers
+    swapped, rejected.  Returns (numbers, the contribution, (d)'s expected
+    points L_j(tau) G of both groups at m points)."""
+    from bellman_mpc_tpu_torch.groth16 import mpc
+    from bellman_mpc_tpu_torch.ops.pairing import _bucket
+
+    k4 = pairing_k4_counts()["eq_batch"]
+    p = engine.fr_host.p
+    st = mpc.initial_common_paramters(engine, n)
+    alpha, beta, tau = (rng.randrange(2, p) for _ in range(3))
+    g1, g2 = engine.g1.generator(), engine.g2.generator()
+    out = {"n_powers": n}
+
+    # From the all-generator state every point of the contribution is a
+    # multiple of the generator (result_i = mine_i = s_i G), so the player's
+    # points come from the engine's device ladders, one batch_mul per group
+    # over all three lists and (d)'s L_j(tau).  mpc_common_paramters_generator
+    # scales the running points with the host mul instead: 3n per group,
+    # 12,288 at 2048 powers (one of each is timed below).
+    powers = [pow(tau, i, p) for i in range(n)]
+    scal = powers + [alpha * x % p for x in powers] + [beta * x % p for x in powers]
+    scal += lagrange_scalars(engine.fr_host, tau, m)
+
+    def build():
+        pts = list(zip(engine.g1.batch_mul(g1, scal), engine.g2.batch_mul(g2, scal)))
+        lists = [mpc.TauParameterPair([mpc.ParameterPair(r1, r2, r1, r2) for r1, r2 in pts[k * n:(k + 1) * n]])
+                 for k in range(3)]
+        contrib = mpc.CommonParamter(
+            alpha=mpc.make_new_paramter(engine, alpha, st.alpha_g1, st.alpha_g2, g1, g2, False),
+            beta=mpc.make_new_paramter(engine, beta, st.beta_g1, st.beta_g2, g1, g2, False),
+            tau=lists[0], alpha_mul_tau=lists[1], beta_mul_tau=lists[2])
+        return contrib, {"g1": [a for a, _ in pts[3 * n:]], "g2": [b for _, b in pts[3 * n:]]}
+
+    (contrib, want), c, out["build_s"] = counted(kl, build)
+    check_no_fold(c, "contribution ladders")
+    out["build_k4"] = c["mont_mul"]
+    # one host mul of each group, what mpc_common_paramters_generator runs per point
+    head = contrib.alpha_mul_tau.list[0]  # alpha G from the ladders
+    for name, group, base, pt in (("g1", engine.g1, g1, head.g1_result), ("g2", engine.g2, g2, head.g2_result)):
+        t0 = time.perf_counter()
+        assert group.mul(base, alpha) == pt, f"the {name} ladder and the host mul disagree"
+        out[f"host_{name}_mul_s"] = time.perf_counter() - t0
+    new, c, out["check_s"] = counted(kl, lambda: mpc.verify_common_paramter(engine, st, contrib))
+    check_pairing_counts(c, k4, "verify_common_paramter")
+    assert new.tau_g1 == contrib.tau.get_g1() and new.beta_mul_tau_g2 == contrib.beta_mul_tau.get_g2()
+    lst, i = contrib.tau.list, n // 2
+    lst[i], lst[i + 1] = lst[i + 1], lst[i]
+    rejected, c, out["reject_s"] = counted(
+        kl, lambda: raises(mpc.CeremonyError, lambda: mpc.verify_common_paramter(engine, st, contrib)))
+    assert rejected, "a contribution with two tau powers swapped was accepted"
+    check_pairing_counts(c, k4, "verify_common_paramter (swapped powers)")
+    lst[i], lst[i + 1] = lst[i + 1], lst[i]
+    n_eq = 4 + 4 * n + n - 1
+    out.update(n_eq=n_eq, lanes=_bucket(n_eq), equations_per_s=n_eq / out["check_s"], k4_per_check=k4)
+    return out, contrib, want
+
+
+def lagrange_transform(kl, engine, contrib, want: dict, m: int) -> dict:
+    """Phase 10d: engine.g1.intt and engine.g2.intt of the contribution's
+    first m tau points (log2 m stage ladders and the 1/n ladder, then the
+    decode, whose Fermat inversion and products are K4's only launches),
+    equal to L_j(tau) G (`want`, from contribution_check)."""
+    host = engine.fr_host
+    k4 = k4_counts(1)
+    out = {"m": m}
+    for name, group, pts in (("g1", engine.g1, contrib.tau.get_g1()[:m]),
+                             ("g2", engine.g2, contrib.tau.get_g2()[:m])):
+        got, c, out[f"{name}_intt_s"] = counted(kl, lambda: group.intt(pts, host))
+        assert c["mont_mul"] == k4[f"decode_{name}"], (name, c)
+        check_no_fold(c, f"{name}.intt")
+        out[f"{name}_k4"] = c["mont_mul"]
+        assert got == want[name], f"{name}.intt != L_j(tau) G"
+    return out
+
+
+def ceremony(kl, engine, device, rng: random.Random, n_powers=CEREMONY_POWERS, m=LAGRANGE_M) -> dict:
+    """Phase 10: the trusted-setup ceremony on the card (a)-(d)."""
+    import torch
+
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    out = {"mock": mock_on_card(kl, device)}
+    out["mock"]["s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    out["lagrange_anddemo"] = lagrange_ceremony(kl, engine)
+    out["lagrange_anddemo"]["s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    out["check"], contrib, want = contribution_check(kl, engine, n_powers, m, rng)
+    out["check"]["s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    out["transform"] = lagrange_transform(kl, engine, contrib, want, m)
+    out["transform"]["s"] = time.perf_counter() - t0
+    out["peak_mem_gib"] = torch.cuda.max_memory_allocated() / 2**30
     return out
 
 
@@ -842,12 +1113,34 @@ def main() -> int:
         "batch_reject_16_s": ver["batch_reject_s"], "host_verify_16_s": ver["host_verify_s"],
         "sequential_verify_s": seq_verify_s, "range_batch_verify_16_s": r_verify_s,
         "pairing_batch_8_s": pa["pairing_batch_8_s"], "host_pairing_8_s": pa["host_pairing_8_s"],
-        "pairing_eq_2048_s": pa["pairing_eq_s"], "equations_per_s": pa["equations_per_s"],
-        "eq_encode_2048_s": pa["eq_encode_s"], "eq_points_2048_s": pa["eq_points_s"],
+        "pairing_eq_s": pa["pairing_eq_s"], "n_eq": pa["n_eq"], "equations_per_s": pa["equations_per_s"],
+        "eq_encode_s": pa["eq_encode_s"], "eq_points_s": pa["eq_points_s"],
         "product_is_one_8_s": pa["product_is_one_8_s"], "product_is_one_32_s": pa["product_is_one_32_s"],
         "pairing_peak_mem_gib": pa["pairing_peak_mem_gib"], "k4_per_call": pa["k4"],
     }
     print("verify and pairing: " + json.dumps(verify_line) + f" on {smi}", flush=True)
+
+    # phase 10: the ceremony
+    cer = ceremony(kl, engine, device, random.Random(10))
+    log(f"ceremony: {cer}")
+    mk, lc, ck, tr = cer["mock"], cer["lagrange_anddemo"], cer["check"], cer["transform"]
+    ceremony_line = {
+        "mock_s": mk["s"], "mock_setup_s": mk["setup_s"], "mock_proof_s": mk["proof_s"],
+        "mock_proofs": mk["proofs"], "mock_k4_L2": mk["k4"],
+        "anddemo_s": lc["s"], "anddemo_lagrange_s": lc["lagrange_s"],
+        "anddemo_direct_setup_s": lc["direct_setup_s"], "anddemo_verify_s": lc["verify_s"],
+        "bad_reject_s": lc["bad_reject_s"],
+        "lagrange_k4": lc["lagrange_k4"],
+        "check_powers": ck["n_powers"], "check_equations": ck["n_eq"], "check_lanes": ck["lanes"],
+        "check_build_s": ck["build_s"], "check_accept_s": ck["check_s"], "check_reject_s": ck["reject_s"],
+        "check_equations_per_s": ck["equations_per_s"], "k4_per_check": ck["k4_per_check"],
+        "check_build_k4": ck["build_k4"], "host_g1_mul_s": ck["host_g1_mul_s"],
+        "host_g2_mul_s": ck["host_g2_mul_s"],
+        "intt_m": tr["m"], "g1_intt_s": tr["g1_intt_s"], "g2_intt_s": tr["g2_intt_s"],
+        "g1_intt_k4": tr["g1_k4"], "g2_intt_k4": tr["g2_k4"],
+        "ceremony_peak_mem_gib": cer["peak_mem_gib"],
+    }
+    print("ceremony: " + json.dumps(ceremony_line) + f" on {smi}", flush=True)
 
     # the kernels' line
     int_rate = int32_ops_per_s()
@@ -885,7 +1178,8 @@ def main() -> int:
             kernels[-1].update(
                 launches_step=step_counts["mont_mul"], launches_decode=decode_counts["mont_mul"],
                 launches_verify=ver["k4_per_verify"], launches_batch_verify=ver["k4_per_verify"],
-                launches_eq_2048=pa["k4"]["eq_batch"],
+                launches_eq_batch=pa["k4"]["eq_batch"], launches_contribution_check=ck["k4_per_check"],
+                launches_mock_proof_L2=mk["k4"], launches_g1_intt=tr["g1_k4"], launches_g2_intt=tr["g2_k4"],
                 graph_floor_ms=checks["mont_mul"]["graph_floor_ms"],
                 shapes=[{"shape": [24, n], "ms": t["ms"], "eager_ms": t["eager_ms"], "plain_ms": t["plain_ms"],
                          "bound_ms": k4_bounds[n][0], "bound_by": k4_bounds[n][1]} for n, t in k4_timed.items()])
@@ -895,10 +1189,11 @@ def main() -> int:
         "step_s": step_s, "steps_s": steps, "proofs_per_s": B_PROOFS / step_s, "decode_s": decode_s,
         "sequential_proof_s": seq_s, "batch_verify_16_s": ver["batch_verify_s"],
         "verify_single_s": ver["verify_single_s"], "host_verify_16_s": ver["host_verify_s"],
-        "pairing_batch_8_s": pa["pairing_batch_8_s"], "pairing_eq_2048_s": pa["pairing_eq_s"],
+        "pairing_batch_8_s": pa["pairing_batch_8_s"], "pairing_eq_s": pa["pairing_eq_s"],
         "range_setup_s": r_setup_s, "range_prover_build_s": r_build_s,
         "range_prove_batch_s": r_prove_s, "range_sequential_proof_s": r_seq_s,
         "range_tables": [[n, k, c] for n, k, c, _ in r_info], "B": B_PROOFS, "m": m,
+        "ceremony_check_s": ck["check_s"], "anddemo_ceremony_s": lc["lagrange_s"],
         "peak_mem_gib": peak_mem_gib,
         "int32_ops_per_s": int_rate, "total_s": total_s,
     }), flush=True)

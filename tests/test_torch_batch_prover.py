@@ -9,8 +9,9 @@ prove -> verify for MiMC rounds=8 (domain 32), held against the reference.
   parameters equal the reference's bytes and read back to the same objects.
 * The port's `generate_random_parameters` equals the reference's.
 * In a subprocess with jax made unimportable, the port runs its own
-  setup -> prove -> verify, and a sequential RangeDemo proof on parameters
-  read from the port's serialized bytes.
+  setup -> prove -> verify, a sequential RangeDemo proof on parameters
+  read from the port's serialized bytes, and the mock ceremony; it imports
+  the ceremony, checkpoint, group-NTT and Gt-byte modules.
 """
 
 import os
@@ -107,8 +108,9 @@ sys.modules["jax"] = None
 from bellman_mpc_tpu_torch import groth16 as tg
 from bellman_mpc_tpu_torch.fields.mock import mock
 from bellman_mpc_tpu_torch.models import AndDemo, MiMCDemo, RangeDemo, RangeDemoExplicit, mimc, mimc_constants
-from bellman_mpc_tpu_torch.ops import kernel_lib, mont_kernels, pairing, tower
-from bellman_mpc_tpu_torch.groth16 import verifier_batch
+from bellman_mpc_tpu_torch.ops import group_ntt, kernel_lib, mont_kernels, pairing, tower
+from bellman_mpc_tpu_torch.groth16 import mpc, mpc_serialize, verifier_batch
+from bellman_mpc_tpu_torch.utils import gt_format, gt_parse
 from bellman_mpc_tpu_torch.parallel import BatchProver
 eng = tg.Bls12Engine("cpu")
 host = eng.fr_host
@@ -127,6 +129,14 @@ r_proof = tg.create_random_proof(
     eng, RangeDemo(a=1, b=3, n=4, w=10, wArray=[0, 1, 0, 1], less_or_equal=1, less=1,
                    not_all_zeros=1), r_params)
 tg.verify_proof(eng, tg.prepare_verifying_key(eng, r_params.vk), r_proof, [3])
+dummy = tg.DummyEngine("cpu")
+assert tg.DUMMY.device.type == "cuda" and isinstance(dummy, tg.Engine)
+assert mpc.mpc_common_paramters_custom_all(dummy, 8).tau_g1[1] == 2
+assert mpc_serialize.common_storage_from_bytes(mpc_serialize.common_storage_to_bytes(
+    mpc.initial_common_paramters(eng, 2))).tau_g1 == [eng.g1.generator()] * 2
+assert mpc.generate_parameters_mpc(dummy, AndDemo(None, None), basis="lagrange").vk.delta_g2 == 24
+assert isinstance(eng.g1, tg.GroupAPI) and len(eng.g1.intt([eng.g1.generator()] * 2, host)) == 2
+assert gt_parse(gt_format(((((1, 2),) * 3),) * 2)) == ((((1, 2),) * 3),) * 2
 assert not any(m == "jax" or m.startswith(("jax.", "bellman_mpc_tpu."))
                for m in sys.modules if sys.modules[m] is not None)
 print("JAX_FREE_OK")

@@ -265,3 +265,46 @@ def test_device_pairing_equations(dev):
         device=dev)
     assert eqs.tolist() == [True, False, True]
     assert kernel_lib.plain_counts["mont_mul"] == 0
+
+
+@pytest.mark.cuda
+def test_anddemo_lagrange_ceremony_equals_generator(dev):
+    """The canned ceremony on AndDemo (groth16/mpc.generate_parameters_mpc,
+    Lagrange basis) on the card gives generate_parameters' CRS under the
+    deterministic trapdoor byte for byte, with no plain multiply and no fold
+    kernel."""
+    from bellman_mpc_tpu_torch.groth16 import (
+        DETERMINISTIC_TRAPDOOR,
+        Bls12Engine,
+        generate_parameters,
+        params_to_bytes,
+    )
+    from bellman_mpc_tpu_torch.groth16.mpc import generate_parameters_mpc
+    from bellman_mpc_tpu_torch.models import AndDemo
+
+    eng = Bls12Engine(dev)
+    t = DETERMINISTIC_TRAPDOOR
+    direct = generate_parameters(eng, AndDemo(None, None), G1.generator, G2.generator,
+                                 t["alpha"], t["beta"], t["gamma"], t["delta"], t["tau"])
+    kernel_lib.reset_launch_counts()
+    ceremony = generate_parameters_mpc(eng, AndDemo(None, None), basis="lagrange")
+    assert kernel_lib.plain_counts["mont_mul"] == 0 and kernel_lib.launch_counts["mont_mul"] > 0
+    assert kernel_lib.launch_counts["rns_fold_window"] == kernel_lib.launch_counts["rns_fold_window_g2"] == 0
+    assert params_to_bytes(ceremony) == params_to_bytes(direct)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("group", ["g1", "g2"])
+def test_device_group_intt_matches_host_butterflies(dev, group):
+    """The device group iNTT (_BlsGroup.intt above 4 points) of 16 points
+    on the card equals GroupAPI.intt's host butterflies."""
+    from bellman_mpc_tpu_torch.groth16 import Bls12Engine, GroupAPI
+
+    eng = Bls12Engine(dev)
+    grp = getattr(eng, group)
+    rng = random.Random(16)
+    pts = [grp.mul(grp.generator(), rng.randrange(1, R)) for _ in range(16)]
+    kernel_lib.reset_launch_counts()
+    got = grp.intt(pts, eng.fr_host)
+    assert kernel_lib.plain_counts["mont_mul"] == 0 and kernel_lib.launch_counts["mont_mul"] > 0
+    assert got == GroupAPI.intt(grp, pts, eng.fr_host)
