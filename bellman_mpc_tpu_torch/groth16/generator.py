@@ -91,7 +91,7 @@ def generate_parameters(
     h = G1.batch_mul(g1, [powers[i] * coeff % p for i in range(m - 1)])
 
     # Lagrange coefficients via device iFFT (generator.rs:400-402).
-    d = EvaluationDomain.from_coeffs(engine.fr, fr, powers, device=engine.device)
+    d = EvaluationDomain.from_coeffs(engine.fr, fr, powers, engine.device)
     d.ifft()
     lag = d.into_coeffs()
 

@@ -3,7 +3,7 @@
 Port of bellman_mpc_tpu/ops/domain.py: an iterative Cooley–Tukey network as
 reshape + batched Montgomery multiply over ``(L, *batch, n)`` limb tensors
 (the transform runs over the trailing axis; leading batch axes stand in for
-the reference's vmap), plus the `EvaluationDomain` that setup needs.
+the reference's vmap), plus `EvaluationDomain` with the reference's methods.
 """
 
 from __future__ import annotations
@@ -114,8 +114,10 @@ def warm_twiddles(field: LimbField, host: PrimeField, exp: int) -> None:
 
 
 class EvaluationDomain:
-    """Host orchestrator mirroring the reference EvaluationDomain API (the
-    part setup uses): device coefficients plus host constants."""
+    """Host orchestrator mirroring the reference EvaluationDomain API:
+    device coefficients (Montgomery limbs, transform over the trailing
+    axis) plus host constants.  Every multiply is LimbField.mul, the limb
+    Montgomery kernel on the card."""
 
     def __init__(self, field: LimbField, host: PrimeField, coeffs: torch.Tensor, exp: int):
         self.field = field
@@ -125,13 +127,57 @@ class EvaluationDomain:
 
     @classmethod
     def from_coeffs(cls, field: LimbField, host: PrimeField, values: List[int],
-                    device="cpu") -> "EvaluationDomain":
+                    device) -> "EvaluationDomain":
+        """Host ints padded with zeros to 2^exp, encoded on `device`."""
         m, exp = domain_size_for(len(values), host)
         padded = list(values) + [0] * (m - len(values))
         return cls(field, host, field.encode(padded, device=device), exp)
 
+    @classmethod
+    def from_device(cls, field: LimbField, host: PrimeField, arr: torch.Tensor) -> "EvaluationDomain":
+        """Montgomery limbs (L, *batch, n), zero-padded to 2^exp on their device."""
+        n = arr.shape[-1]
+        m, exp = domain_size_for(n, host)
+        if m != n:
+            pad = field.zeros(tuple(arr.shape[1:-1]) + (m - n,), arr.device)
+            arr = torch.cat([arr, pad], dim=-1)
+        return cls(field, host, arr, exp)
+
+    def __len__(self) -> int:
+        return self.coeffs.shape[-1]
+
     def into_coeffs(self) -> List[int]:
         return self.field.decode(self.coeffs)
 
+    def fft(self) -> None:
+        self.coeffs = ntt(self.field, self.host, self.coeffs, inverse=False)
+
     def ifft(self) -> None:
         self.coeffs = ntt(self.field, self.host, self.coeffs, inverse=True)
+
+    def distribute_powers(self, g: int) -> None:
+        self.coeffs = distribute_powers(self.field, self.host, self.coeffs, g % self.host.p)
+
+    def coset_fft(self) -> None:
+        self.distribute_powers(self.host.generator)
+        self.fft()
+
+    def icoset_fft(self) -> None:
+        self.ifft()
+        self.distribute_powers(self.host.inv(self.host.generator))
+
+    def z(self, tau: int) -> int:
+        """The vanishing polynomial tau^m - 1 on the host."""
+        return (pow(tau, len(self), self.host.p) - 1) % self.host.p
+
+    def divide_by_z_on_coset(self) -> None:
+        zinv = self.host.inv(self.z(self.host.generator))
+        self.coeffs = self.field.mul_const(self.coeffs, zinv)
+
+    def mul_assign(self, other: "EvaluationDomain") -> None:
+        assert len(self) == len(other)
+        self.coeffs = self.field.mul(self.coeffs, other.coeffs)
+
+    def sub_assign(self, other: "EvaluationDomain") -> None:
+        assert len(self) == len(other)
+        self.coeffs = self.field.sub(self.coeffs, other.coeffs)

@@ -1,27 +1,47 @@
-"""Multi-scalar multiplication: the pieces of the `rns` main path.
+"""Multi-scalar multiplication on limb tensors and RNS tables.
 
-Port of the subset of bellman_mpc_tpu/ops/msm.py that the batched prover's
-`rns` strategy and setup run: scalar digits (`digits_from_bits`,
-`signed_digits`), the affine window bucket tables (`shifted_bases`,
-`window_tables_affine`, `tables_to_rns`), the window fold over padded RNS
-tables (`msm_table_affine_rns`, whose every window goes through the fold
-kernels of ops/fold_kernels.py), `pick_table_c`, and the device ladder
-behind setup's fixed-base batches (`batch_mul_host`).
+Port of bellman_mpc_tpu/ops/msm.py:
+
+  * scalar digits (`digits_from_bits`, `signed_digits`);
+  * the `rns` main path: affine window bucket tables (`shifted_bases`,
+    `window_tables_affine`, `tables_to_rns`) and the window fold over padded
+    RNS tables (`msm_table_affine_rns`, every window one fold-kernel launch,
+    ops/fold_kernels.py), `pick_table_c`;
+  * the limb strategies: per-point ladders (`msm_ladder`), the bucket
+    method (`msm_pippenger`, `msm_pippenger_batched`), the flat bucket pass
+    over pre-shifted bases (`msm_flat_pippenger`), and the gather MSMs over
+    projective (`window_tables`, `msm_table`) or affine signed-digit tables
+    (`msm_table_affine`);
+  * fixed-base multiplication: the device ladder (`batch_mul_host`) and the
+    comb (`fixed_base_tables`, `batch_mul_comb`, `batch_mul_comb_host`,
+    taken under BMT_FIXED_BASE=comb);
+  * the host-facing MSMs (`msm_host`, `msm_pippenger_host`, taken under
+    BMT_MSM_STRATEGY=pippenger at 64 bases or more).
+
+The bucket method's segmented scans run through `associative_scan`, the
+odd/even recursion of jax.lax.associative_scan in plain tensor ops.  Point
+operations are the lazy-column formulas of curves/device.py, so their limb
+products are plain PyTorch; only LimbField.mul (the decodes, the table
+build's batch inversion) launches the limb Montgomery kernel on the card.
 """
 
 from __future__ import annotations
 
+import os
 from fractions import Fraction
 from typing import List, Sequence
 
+import numpy as np
 import torch
 
 from ..curves.device import (
     DeviceGroup,
     Point,
     point_add,
+    point_add_mixed,
     point_double,
     point_identity,
+    point_select,
     scalar_mul_bits,
     scalars_to_bits,
     tree_reduce,
@@ -80,6 +100,203 @@ def shifted_bases(ops, points: Point, c: int, nbits: int = 255) -> Point:
         for _ in range(c):
             cur = point_double(ops, cur)
     return tuple(x.reshape(tuple(x.shape[:-2]) + (W * N,)) for x in acc)
+
+
+def associative_scan(fn, elems, reverse: bool = False):
+    """Inclusive scan of `fn` over the trailing axis of a tuple of tensors,
+    the odd/even recursion of jax.lax.associative_scan (depth 2 log n, about
+    2n combines); `reverse` scans from the end (flip, scan, flip), as JAX
+    does.  fn(a, b) combines two tuples lane by lane, a before b."""
+    if reverse:
+        out = _scan(fn, tuple(torch.flip(x, [-1]) for x in elems))
+        return tuple(torch.flip(x, [-1]) for x in out)
+    return _scan(fn, tuple(elems))
+
+
+def _scan(fn, elems):
+    n = elems[0].shape[-1]
+    if n < 2:
+        return elems
+    odd = _scan(fn, fn(tuple(x[..., 0:-1:2] for x in elems), tuple(x[..., 1::2] for x in elems)))
+    if n > 2:
+        left = odd if n % 2 else tuple(x[..., :-1] for x in odd)
+        even = fn(left, tuple(x[..., 2::2] for x in elems))
+    out = []
+    for i, (x, o) in enumerate(zip(elems, odd)):
+        t = torch.empty(tuple(o.shape[:-1]) + (n,), dtype=o.dtype, device=o.device)
+        t[..., :1] = x[..., :1]
+        t[..., 1::2] = o
+        if n > 2:
+            t[..., 2::2] = even[i]
+        out.append(t)
+    return tuple(out)
+
+
+def _segmented_add(ops):
+    """The bucket scans' combine: b where b starts a segment, else a + b;
+    the start flags are or-ed."""
+
+    def combine(a, b):
+        s = point_add(ops, a[:3], b[:3])
+        start = b[3]
+        return tuple(torch.where(start, y, x) for x, y in zip(s, b[:3])) + (a[3] | start,)
+
+    return combine
+
+
+def _bucket_sums(ops, pts: Point, keys: torch.Tensor, n_keys: int) -> Point:
+    """Bucket sums S_k over points sorted by key: a segmented scan, then the
+    last lane of each key's run (scatter-max of the lane index); keys with
+    no lane give the identity.  pts: (L, [2,] *S, M), keys: (*S, M) sorted
+    along M.  Returns (L, [2,] *S, n_keys)."""
+    M = keys.shape[-1]
+    start = torch.ones_like(keys, dtype=torch.bool)
+    start[..., 1:] = keys[..., 1:] != keys[..., :-1]
+    sums = associative_scan(_segmented_add(ops), tuple(pts) + (start,))[:3]
+    k = keys.to(torch.long)
+    lane = torch.arange(M, device=k.device).expand(k.shape)
+    shape = tuple(k.shape[:-1]) + (n_keys,)
+    last = torch.zeros(shape, dtype=torch.long, device=k.device).scatter_reduce(-1, k, lane, "amax")
+    present = torch.zeros(shape, dtype=torch.bool, device=k.device).scatter(-1, k, True)
+    bucket = tuple(x.gather(-1, last.expand(tuple(x.shape[:-1]) + (n_keys,))) for x in sums)
+    return point_select(ops, present, bucket, point_identity(ops, shape, k.device))
+
+
+def _sub_first(ops, total: Point, first: Point) -> Point:
+    """total - first (negation is free on short-Weierstrass points)."""
+    return point_add(ops, total, (first[0], ops.neg(first[1]), first[2]))
+
+
+# windows of the bucket method scanned together: at most this many lanes
+_SCAN_LANES = 1 << 19
+
+
+def msm_pippenger_batched(ops, points: Point, digits: torch.Tensor, c: int) -> Point:
+    """Bucket-method MSM over a batch of scalar sets sharing one base set.
+
+    points: coords (L, [2,] N); digits: (W, B, N) window digits (LSB window
+    first) in [0, 2^c).  Per window, as the reference: a stable sort by
+    digit, bucket sums by a segmented scan, sum_b b S_b by summation by
+    parts (a reverse scan over the 2^c buckets, its tree sum, minus
+    suffix_0); then the Horner fold over the windows with c doublings each.
+    The window sums are independent, so the windows are scanned together
+    (up to _SCAN_LANES lanes at a time) and only the fold is sequential.
+    Returns (L, [2,] B, 1)."""
+    W, B, N = digits.shape
+    nb = 1 << c
+    dev = digits.device
+    perm = torch.argsort(digits, dim=-1, stable=True)
+    sdig = torch.gather(digits, -1, perm)
+    step = max(1, _SCAN_LANES // (B * N))
+    parts = []
+    for w0 in range(0, W, step):
+        pw, dw = perm[w0:w0 + step], sdig[w0:w0 + step]
+        bucket = _bucket_sums(ops, tuple(x[..., pw] for x in points), dw, nb)
+        suffix = associative_scan(lambda a, b: point_add(ops, a, b), bucket, reverse=True)
+        parts.append(_sub_first(ops, tree_reduce(ops, suffix), tuple(x[..., :1] for x in suffix)))
+    sums = tuple(torch.cat([p[k] for p in parts], dim=-3) for k in range(3))  # (L, [2,] W, B, 1)
+    res = point_identity(ops, (B, 1), dev)
+    for w in range(W - 1, -1, -1):  # MSB window first
+        for _ in range(c):
+            res = point_double(ops, res)
+        res = point_add(ops, res, tuple(x.select(-3, w) for x in sums))
+    return res
+
+
+def msm_pippenger(ops, points: Point, digits: torch.Tensor, c: int) -> Point:
+    """Bucket-method MSM of one scalar set: digits (W, N) -> (L, [2,] 1)."""
+    out = msm_pippenger_batched(ops, points, digits[:, None], c)
+    return tuple(x[..., 0, :] for x in out)
+
+
+def msm_flat_pippenger(ops, sbases: Point, digits: torch.Tensor, c: int) -> Point:
+    """Bucket-method MSM over pre-shifted bases: one sort, one segmented
+    scan, one bucket fold, no doublings.
+
+    sbases: coords (L, [2,] W*N) from `shifted_bases`; digits: (W, B, N).
+    sum_i s_i P_i = sum_{w,i} d_{w,i} (2^(cw) P_i) is one small-scalar MSM
+    over W*N points with bucket keys (w << c) | digit; the weighted fold is
+    summation by parts per window, a segmented reverse scan whose segments
+    start at each window's last bucket.  Returns (L, [2,] B, 1)."""
+    W, B, N = digits.shape
+    M = W * N
+    nb = 1 << c
+    n_keys = W * nb
+    dev = digits.device
+    keys = (torch.arange(W, dtype=digits.dtype, device=dev)[:, None, None] * nb + digits)
+    keys = keys.permute(1, 0, 2).reshape(B, M)
+    perm = torch.argsort(keys, dim=-1, stable=True)
+    bucket = _bucket_sums(ops, tuple(x[..., perm] for x in sbases), torch.gather(keys, -1, perm), n_keys)
+    wend = (torch.arange(n_keys, device=dev) % nb == nb - 1).expand(B, n_keys)
+    suffix = associative_scan(_segmented_add(ops), tuple(bucket) + (wend,), reverse=True)[:3]
+    s0 = tuple(x[..., ::nb] for x in suffix)  # each window's suffix_0: (L, [2,] B, W)
+    Wp = _pad_pow2(W)
+    if Wp != W:
+        ident = point_identity(ops, (B, Wp - W), dev)
+        s0 = tuple(torch.cat([x, i_], dim=-1) for x, i_ in zip(s0, ident))
+    return _sub_first(ops, tree_reduce(ops, suffix), tree_reduce(ops, s0))
+
+
+def window_tables(ops, points: Point, c: int, nbits: int = 255) -> Point:
+    """Projective window bucket tables T[w, b, i] = b 2^(cw) P_i for the
+    unsigned gather MSM, buckets 0..2^c-1 (bucket 0 the identity (0 : 1 :
+    0)): coords (L, [2,] W, 2^c, N)."""
+    W = -(-nbits // c)
+    N = points[0].shape[-1]
+    nb = 1 << c
+    dev = points[0].device
+    sb = tuple(x.reshape(tuple(x.shape[:-1]) + (W, N)) for x in shifted_bases(ops, points, c, nbits))
+    table = [torch.zeros(tuple(x.shape[:-1]) + (W, nb, N), dtype=torch.int32, device=dev) for x in points]
+    table[1][..., 0, :].copy_(ops.one((W, N), dev))
+    running = point_identity(ops, (W, N), dev)
+    for b in range(1, nb):
+        running = point_add(ops, running, sb)
+        for t, x in zip(table, running):
+            t[..., b, :].copy_(x)
+    return tuple(table)
+
+
+def _pick(t: torch.Tensor, w: int, idx: torch.Tensor, n_idx: torch.Tensor) -> torch.Tensor:
+    """Window w's bucket idx[b, i] of base i: (L, [2,] W, nb, N) -> (L, [2,] B, N)."""
+    return t.select(-3, w)[..., idx, n_idx]
+
+
+def msm_table(ops, tables: Point, digits: torch.Tensor) -> Point:
+    """MSM from projective window tables: per window a gather and one
+    complete addition at (B, N) lanes, then the tree reduction.
+
+    tables: (L, [2,] W, 2^c, N) from `window_tables`; digits: (W, B, N).
+    Returns (L, [2,] B, 1)."""
+    W, B, N = digits.shape
+    dev = digits.device
+    idx = digits.to(torch.long)
+    n_idx = torch.arange(N, device=dev)
+    acc = point_identity(ops, (B, N), dev)
+    for w in range(W):
+        acc = point_add(ops, acc, tuple(_pick(t, w, idx[w], n_idx) for t in tables))
+    return tree_reduce(ops, acc)
+
+
+def msm_table_affine(ops, tables, sdigits: torch.Tensor) -> Point:
+    """MSM from affine window tables and signed digits (the limb twin of
+    msm_table_affine_rns): per window gather the |digit| bucket, negate y
+    where the digit is negative, fold with one complete mixed addition, and
+    keep the accumulator where the bucket is the (0, 0) identity sentinel.
+
+    tables: (x, y) from `window_tables_affine`, coords (L, [2,] W, nb, N);
+    sdigits: (W, B, N) from `signed_digits`.  Returns (L, [2,] B, 1)."""
+    W, B, N = sdigits.shape
+    dev = sdigits.device
+    mag = torch.abs(sdigits).to(torch.long)
+    sgn = sdigits < 0
+    n_idx = torch.arange(N, device=dev)
+    acc = point_identity(ops, (B, N), dev)
+    for w in range(W):
+        qx, qy = (_pick(t, w, mag[w], n_idx) for t in tables)
+        inf = torch.logical_and(ops.is_zero(qx), ops.is_zero(qy))
+        qy = ops.select(sgn[w], ops.neg(qy), qy)
+        acc = point_select(ops, inf, acc, point_add_mixed(ops, acc, (qx, qy)))
+    return tree_reduce(ops, acc)
 
 
 def window_tables_affine(ops, points: Point, c: int, nbits: int = 255):
@@ -221,9 +438,80 @@ def pick_table_c(n: int, g2: bool, budget_mb: int = 1536, nbits: int = 255) -> i
     return best
 
 
+def _window_digits(scalars: Sequence[int], c: int, device, nbits: int = 255) -> torch.Tensor:
+    """Host ints -> (W, n) int32 base-2^c digits, LSB window first."""
+    W = -(-nbits // c)
+    mask = (1 << c) - 1
+    digits = np.array([[(int(s) >> (w * c)) & mask for s in scalars] for w in range(W)], np.int32)
+    return torch.from_numpy(digits.reshape(W, len(scalars))).to(device)
+
+
+def fixed_base_tables(ops, base: Point, c: int, nbits: int = 255) -> Point:
+    """Comb tables T[w, b] = b 2^(cw) base, coords (L, [2,] W, 2^c): the
+    replacement for the reference's wNAF window tables (generator.rs:311-328).
+    base: one point's coords (L, [2,]).  (W-1) c sequential doublings make
+    the window bases, then 2^c - 1 sequential additions on W lanes fill the
+    buckets (bucket 0 is the identity)."""
+    W = -(-nbits // c)
+    dev = base[0].device
+    cur = tuple(x[..., None] for x in base)
+    shifted = []
+    for w in range(W):
+        shifted.append(cur)
+        if w < W - 1:
+            for _ in range(c):
+                cur = point_double(ops, cur)
+    bases = tuple(torch.cat([p[k] for p in shifted], dim=-1) for k in range(3))  # (L, [2,] W)
+    running = point_identity(ops, (W,), dev)
+    cols = [running]
+    for _ in range((1 << c) - 1):
+        running = point_add(ops, running, bases)
+        cols.append(running)
+    return tuple(torch.stack([p[k] for p in cols], dim=-1) for k in range(3))
+
+
+def batch_mul_comb(ops, table: Point, digits: torch.Tensor, c: int) -> Point:
+    """Fixed-base multiplies from comb tables: digits (W, N) -> points
+    (L, [2,] N), one gather of T[w, digit] and a log-depth add tree over the
+    window axis (padded to a power of two with identities)."""
+    W, N = digits.shape
+    dev = digits.device
+    w_idx = torch.arange(W, device=dev)[:, None]
+    X, Y, Z = (x[..., w_idx, digits.to(torch.long)] for x in table)  # (L, [2,] W, N)
+    Wp = _pad_pow2(W)
+    if Wp != W:
+        ident = point_identity(ops, (Wp - W, N), dev)
+        X, Y, Z = (torch.cat([x, i_], dim=-2) for x, i_ in zip((X, Y, Z), ident))
+    n = Wp
+    while n > 1:
+        half = n // 2
+        X, Y, Z = point_add(ops, (X[..., :half, :], Y[..., :half, :], Z[..., :half, :]),
+                            (X[..., half:, :], Y[..., half:, :], Z[..., half:, :]))
+        n = half
+    return (X[..., 0, :], Y[..., 0, :], Z[..., 0, :])
+
+
+_COMB_C = 8
+
+
+def batch_mul_comb_host(group: DeviceGroup, base, exps: Sequence[int], device) -> List:
+    """[base * e for e in exps] through a comb table built on the device."""
+    n = len(exps)
+    if n == 0:
+        return []
+    sc = list(exps) + [0] * (_pad_pow2(n) - n)
+    base_dev = tuple(x[..., 0] for x in group.encode_points([base], device))
+    table = fixed_base_tables(group.ops, base_dev, _COMB_C)
+    out = batch_mul_comb(group.ops, table, _window_digits(sc, _COMB_C, device), _COMB_C)
+    return group.decode_points(out)[:n]
+
+
 def batch_mul_host(group: DeviceGroup, base, exps: Sequence[int], device) -> List:
     """[base * e for e in exps] on the device: one branchless ladder over
-    all exponents (padded to a power of two)."""
+    all exponents (padded to a power of two); BMT_FIXED_BASE=comb, read at
+    call time, takes the comb table instead."""
+    if os.environ.get("BMT_FIXED_BASE") == "comb":
+        return batch_mul_comb_host(group, base, exps, device)
     n = len(exps)
     if n == 0:
         return []
@@ -241,13 +529,28 @@ def msm_ladder(ops, points: Point, bits: torch.Tensor) -> Point:
     return tree_reduce(ops, scalar_mul_bits(ops, points, bits))
 
 
-def msm_host(group: DeviceGroup, bases: Sequence, scalars: Sequence[int], device):
-    """Host-facing MSM: affine host points + int scalars -> host point, as
-    one ladder over all bases on the device (padded to a power of two with
-    identities)."""
+def msm_pippenger_host(group: DeviceGroup, bases: Sequence, scalars: Sequence[int], device,
+                       c: int = 8):
+    """Host-facing bucket-method MSM (padded to a power of two)."""
     n = len(bases)
     if n == 0:
         return None
+    m = _pad_pow2(n)
+    pts = group.encode_points(list(bases) + [None] * (m - n), device)
+    digits = _window_digits(list(scalars) + [0] * (m - n), c, device)
+    return group.decode_points(msm_pippenger(group.ops, pts, digits, c))[0]
+
+
+def msm_host(group: DeviceGroup, bases: Sequence, scalars: Sequence[int], device):
+    """Host-facing MSM: affine host points + int scalars -> host point, as
+    one ladder over all bases on the device (padded to a power of two with
+    identities); BMT_MSM_STRATEGY=pippenger, read at call time, takes the
+    bucket method at 64 bases or more."""
+    n = len(bases)
+    if n == 0:
+        return None
+    if n >= 64 and os.environ.get("BMT_MSM_STRATEGY") == "pippenger":
+        return msm_pippenger_host(group, bases, scalars, device, c=8)
     nbits = max(max(s.bit_length() for s in scalars), 1)
     m = _pad_pow2(n)
     pts = group.encode_points(list(bases) + [None] * (m - n), device)

@@ -1,30 +1,52 @@
-"""Batched Groth16 proving on PyTorch tensors: the `rns` strategy.
+"""Batched Groth16 proving on PyTorch tensors.
 
-Port of bellman_mpc_tpu/parallel/batch_prover.py for its main path:
+Port of bellman_mpc_tpu/parallel/batch_prover.py:
 
     (a, b, c) per-constraint evaluations   (L, B, m) Montgomery limbs
       -> h(x) coset pipeline               (7 NTT passes, groth16/prover.py)
-      -> bit / signed-digit decomposition of h and the witness scalars
-      -> 5 MSMs over baked CRS bucket tables in padded RNS form: every
-         window of the four G1 MSMs (h, l, a, b1) is one K1 launch and
-         every window of the G2 MSM (b2) one K2 launch (ops/fold_kernels.py)
-      -> tree reduction, RNS -> limb bridge, proof assembly with limb
-         point ops (curves/device.py), batched to-affine on decode.
+      -> bit / window-digit decomposition of h and the witness scalars
+      -> 5 MSMs against the CRS base sets (four on G1: h, l, a, b1; b2 on G2)
+      -> proof assembly with limb point ops (curves/device.py), batched
+         to-affine on decode.
 
+The MSM strategy is fixed at construction (`msm_strategy`):
+  * "rns": bucket tables in padded RNS form, every window of the four G1
+    MSMs one K1 launch and every window of the G2 MSM one K2 launch
+    (ops/fold_kernels.py), then the tree reduction and the RNS -> limb
+    bridge;
+  * "table": limb bucket tables, signed digits over affine tables
+    (`msm_table_affine`), or under BMT_TABLE_SIGNED=0 unsigned digits over
+    projective tables (`msm_table`);
+  * "pippenger" and "flatpip": the bucket method per window, or in one flat
+    pass over bases shifted once at build time (window width `pippenger_c`);
+    base sets under 16 take the ladder;
+  * "ladder": per-proof double-and-add over the bases, then a tree sum;
+  * "auto" (the default): "rns" on a CUDA engine, "ladder" on the CPU, the
+    reference's rule keyed on the engine's device.
+The limb strategies return limb points straight to the proof assembly.
 Density bookkeeping is resolved at build time from a template synthesis;
 the input-wire queries ride the aux queries' power-of-two padding, as in the
-reference (8 MSMs collapse to 5).  Window width follows the reference's
-rule: `pick_table_c` on the card, 4 on the CPU.
+reference (8 MSMs collapse to 5).  The table window width follows the
+reference: BMT_TABLE_C, else `pick_table_c` under BMT_TABLE_MEM_MB for
+signed tables on the card, else 4.
 """
 
 from __future__ import annotations
 
+import os
 from typing import List, Sequence, Tuple
 
 import numpy as np
 import torch
 
-from ..curves.device import g1_device, g2_device, point_add, scalar_mul_const
+from ..curves.device import (
+    g1_device,
+    g2_device,
+    point_add,
+    scalar_mul_bits,
+    scalar_mul_const,
+    tree_reduce,
+)
 from ..curves.rns_point import default_rns_field, rns_g1_ops, rns_g2_ops
 from ..fields import bls12_381 as bc
 from ..fields.limb import LIMB_BITS, LimbField
@@ -34,15 +56,24 @@ from ..ops.domain import domain_size_for, warm_twiddles
 from ..ops.fold_kernels import pad_rns_table
 from ..ops.msm import (
     digits_from_bits,
+    msm_flat_pippenger,
+    msm_pippenger_batched,
+    msm_table,
+    msm_table_affine,
     msm_table_affine_rns,
     pick_table_c,
+    shifted_bases,
     signed_digits,
     tables_to_rns,
+    window_tables,
     window_tables_affine,
 )
 from ..r1cs.core import Circuit
 
 NBITS = 255  # Fr scalar bits
+STRATEGIES = ("rns", "table", "pippenger", "flatpip", "ladder")
+# the reference's opt-ins that the port does not have yet (variable, value)
+_UNPORTED = (("BMT_GLV", "1"), ("BMT_MERGE_G1", "1"), ("BMT_STACK_MSMS", "1"), ("BMT_CARRIES", "scan"))
 
 
 def bits_from_std(field: LimbField, std: torch.Tensor) -> torch.Tensor:
@@ -71,18 +102,26 @@ def _pad_pow2_int(n: int) -> int:
 
 
 class BatchProver:
-    """Per-(circuit, params) batched prover, `rns` MSM strategy."""
+    """Per-(circuit, params) batched prover (MSM strategies: module doc)."""
 
     def __init__(self, engine, params: Parameters, circuit_template: Circuit,
-                 msm_strategy: str = "rns"):
-        if msm_strategy != "rns":
-            raise ValueError("the port implements the rns strategy only")
+                 msm_strategy: str = "auto", pippenger_c: int = 8, mesh=None):
+        if mesh is not None:
+            raise NotImplementedError("mesh= is not ported yet (ROADMAP.md A4b)")
+        for var, val in _UNPORTED:
+            if os.environ.get(var) == val:
+                raise NotImplementedError(f"{var}={val} is not ported yet (ROADMAP.md A4b)")
         assert engine.name == "bls12_381"
+        if msm_strategy == "auto":
+            msm_strategy = "rns" if engine.device.type == "cuda" else "ladder"
+        if msm_strategy not in STRATEGIES:
+            raise ValueError(f"unknown msm_strategy {msm_strategy!r}")
         self.engine = engine
         self.device = engine.device
         self.fr = engine.fr
         self.params = params
         self.msm_strategy = msm_strategy
+        self.pippenger_c = pippenger_c
         dev = self.device
 
         tpl = synthesize_witness(engine, circuit_template)
@@ -134,41 +173,75 @@ class BatchProver:
         self._build_tables()
 
     # ---------------------------------------------------------------- tables
+    def _base_sets(self):
+        return (("h", self.crs_h, g1_device), ("l", self.crs_l, g1_device),
+                ("a", self.crs_a, g1_device), ("b1", self.crs_b1, g1_device),
+                ("b2", self.crs_b2, g2_device))
+
     def _build_tables(self) -> None:
-        """Affine bucket tables per CRS base set -> int16 RNS residues in the
-        80-row padded layout (device-resident; the limb tables are freed)."""
-        on_card = self.device.type == "cuda"
-        f = default_rns_field()
+        """Per CRS base set, the strategy's build-time device work, resident:
+        "rns": affine bucket tables -> int16 RNS residues in the 80-row
+        padded layout (the limb tables are freed); "table": the limb bucket
+        tables; "flatpip": the shifted bases of sets of 16 or more."""
+        strategy = self.msm_strategy
         self._tables = {}
-        for crs, grp, rops in (
-            (self.crs_h, g1_device, rns_g1_ops()),
-            (self.crs_l, g1_device, rns_g1_ops()),
-            (self.crs_a, g1_device, rns_g1_ops()),
-            (self.crs_b1, g1_device, rns_g1_ops()),
-            (self.crs_b2, g2_device, rns_g2_ops()),
-        ):
-            n = crs[0].shape[-1]
-            c_tab = pick_table_c(n, g2=grp is g2_device) if on_card else 4
+        self._sbases = {}
+        self._table_signed = strategy == "rns" or (
+            strategy == "table" and os.environ.get("BMT_TABLE_SIGNED", "1") == "1")
+        if strategy == "flatpip":
+            for _, crs, grp in self._base_sets():
+                if crs[0].shape[-1] >= 16:
+                    self._sbases[id(crs)] = shifted_bases(grp.ops, crs, self.pippenger_c)
+        if strategy not in ("rns", "table"):
+            return
+        c_env = int(os.environ.get("BMT_TABLE_C", "0"))
+        budget = int(os.environ.get("BMT_TABLE_MEM_MB", "1536"))
+        pick = self._table_signed and self.device.type == "cuda"
+        f = default_rns_field()
+        for _, crs, grp in self._base_sets():
+            g2 = grp is g2_device
+            c_tab = c_env or (pick_table_c(crs[0].shape[-1], g2, budget) if pick else 4)
+            if not self._table_signed:
+                self._tables[id(crs)] = (window_tables(grp.ops, crs, c_tab), None, c_tab)
+                continue
             tab = window_tables_affine(grp.ops, crs, c_tab)
-            rtab, bound = tables_to_rns(rops, bc.fp, tab)
+            if strategy == "table":
+                self._tables[id(crs)] = (tab, None, c_tab)
+                continue
+            rtab, bound = tables_to_rns(rns_g2_ops() if g2 else rns_g1_ops(), bc.fp, tab)
             del tab
             self._tables[id(crs)] = (pad_rns_table(f, rtab), bound, c_tab)
             del rtab
 
     def table_info(self) -> List[Tuple[str, int, int, int]]:
-        """(name, base count, window width c, table bytes) per MSM."""
-        out = []
-        for name, crs in (("h", self.crs_h), ("l", self.crs_l), ("a", self.crs_a),
-                          ("b1", self.crs_b1), ("b2", self.crs_b2)):
-            tab, _, c = self._tables[id(crs)]
-            out.append((name, crs[0].shape[-1], c, sum(t.numel() * t.element_size() for t in tab)))
-        return out
+        """(name, base count, window width c, table bytes) per MSM; empty for
+        the strategies without tables."""
+        return [(name, crs[0].shape[-1], self._tables[id(crs)][2],
+                 sum(t.numel() * t.element_size() for t in self._tables[id(crs)][0]))
+                for name, crs, _ in self._base_sets() if id(crs) in self._tables]
 
     # ------------------------------------------------------------------ step
-    def _msm(self, rops, crs, bits):
-        tab, bound, c_tab = self._tables[id(crs)]
-        sd = signed_digits(digits_from_bits(bits, c_tab), c_tab)
-        return msm_table_affine_rns(rops, bc.fp, tab, sd, bound)
+    def _msm(self, grp, crs, bits):
+        """One MSM of the step: bits (NBITS, B, N) -> limb point (L, [2,] B, 1)."""
+        strategy = self.msm_strategy
+        ops = grp.ops
+        if strategy in ("rns", "table"):
+            tab, bound, c_tab = self._tables[id(crs)]
+            digits = digits_from_bits(bits, c_tab)
+            if strategy == "rns":
+                rops = rns_g2_ops() if grp is g2_device else rns_g1_ops()
+                return msm_table_affine_rns(rops, bc.fp, tab, signed_digits(digits, c_tab), bound)
+            if self._table_signed:
+                return msm_table_affine(ops, tab, signed_digits(digits, c_tab))
+            return msm_table(ops, tab, digits)
+        c = self.pippenger_c
+        if strategy == "flatpip" and id(crs) in self._sbases:
+            return msm_flat_pippenger(ops, self._sbases[id(crs)], digits_from_bits(bits, c), c)
+        if strategy == "pippenger" and crs[0].shape[-1] >= 16:
+            return msm_pippenger_batched(ops, crs, digits_from_bits(bits, c), c)
+        per_proof = tuple(x[..., None, :].expand(tuple(x.shape[:-1]) + tuple(bits.shape[1:]))
+                          for x in crs)  # the bases broadcast over B
+        return tree_reduce(ops, scalar_mul_bits(ops, per_proof, bits))
 
     def step(self, a8, b8, c8, wit_in8, wit_aux8):
         """Packed std-form bytes (B, k, nbytes) -> projective (g_a, g_b, g_c),
@@ -202,12 +275,11 @@ class BatchProver:
             self.crs_b1[0].shape[-1])
         bits_l = pad_scalars(bits_aux, self.crs_l[0].shape[-1])
 
-        g1r, g2r = rns_g1_ops(), rns_g2_ops()
-        h_pt = self._msm(g1r, self.crs_h, bits_h)
-        l_pt = self._msm(g1r, self.crs_l, bits_l)
-        a_answer = self._msm(g1r, self.crs_a, bits_a)
-        b1_answer = self._msm(g1r, self.crs_b1, bits_b)
-        b2_answer = self._msm(g2r, self.crs_b2, bits_b)
+        h_pt = self._msm(g1_device, self.crs_h, bits_h)
+        l_pt = self._msm(g1_device, self.crs_l, bits_l)
+        a_answer = self._msm(g1_device, self.crs_a, bits_a)
+        b1_answer = self._msm(g1_device, self.crs_b1, bits_b)
+        b2_answer = self._msm(g2_device, self.crs_b2, bits_b)
 
         def bconst(pt):
             return tuple(c.unsqueeze(-2).expand(tuple(c.shape[:-1]) + (B, 1)) for c in pt)

@@ -59,7 +59,19 @@ Phases (each raises on failure; nothing is caught):
      equations, one pairing_eq_batch of 12,288 lanes): accepted, and
      rejected with two tau powers swapped; (d) the Lagrange transform
      (engine.g1/g2.intt) of its first 1024 tau points equal to L_j(tau) G;
-     prints a `ceremony:` line with the times and K4 counts.
+     prints a `ceremony:` line with the times and K4 counts;
+ 11. the limb MSM strategies and the rest of the slice (same MiMC-322 CRS):
+     (a) BatchProver with ladder, table (signed, pick_table_c's width),
+     pippenger and flatpip (c = 8), each built and run on phase 5's 16
+     witnesses, every proof equal to the rns proofs in its 192 bytes, K4
+     launched as k4_counts says per step and per decode, no fold kernel, no
+     plain multiply; (b) generate_random_parameters under
+     BMT_FIXED_BASE=comb, its parameter bytes equal to phase 4's; (c) the
+     sequential proof of witness 0 under BMT_MSM_STRATEGY=pippenger equal to
+     batch proof 0; (d) h(x) of witness 0 through EvaluationDomain equal to
+     _h_pipeline's limbs; prints a `strategies:` line with each strategy's
+     build, step and decode seconds, peak memory and K4 launches beside
+     rns's, and the comb and ladder setups' seconds.
 
 Prints the kernels' JSON line (every kernel with its launches on the main
 path, error, times, bound and library yardstick), the card's name and power
@@ -67,7 +79,9 @@ limit, and, last, {"ok": true, "device": {...}}.
 Imports nothing of JAX and nothing of the JAX package.
 """
 
+import contextlib
 import json
+import os
 import random
 import statistics
 import subprocess
@@ -857,6 +871,128 @@ def ceremony(kl, engine, device, rng: random.Random, n_powers=CEREMONY_POWERS, m
     return out
 
 
+LIMB_STRATEGIES = ("ladder", "table", "pippenger", "flatpip")
+PIPPENGER_C = 8
+
+
+@contextlib.contextmanager
+def environ(**values):
+    """Set environment variables for the block, then restore them."""
+    old = {k: os.environ.get(k) for k in values}
+    os.environ.update(values)
+    try:
+        yield
+    finally:
+        for k, v in old.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
+def limb_strategies(kl, engine, params, constants, circuits, want, k4) -> dict:
+    """Phase 11a: BatchProver with each limb strategy (signed tables at
+    pick_table_c's width; pippenger and flatpip at c = 8) on phase 5's
+    witnesses: its build, one step and its decode (prove_batch's body, timed
+    apart), all proofs equal to the rns proofs `want` in their 192 bytes.
+    The MSMs' point operations are lazy columns, so a step launches K4 as
+    rns's does (to_mont, the h(x) pipeline, std_from_mont), and no fold
+    kernel; no plain multiply runs on the card."""
+    import torch
+
+    from bellman_mpc_tpu_torch.groth16 import proof_to_bytes
+    from bellman_mpc_tpu_torch.models import MiMCDemo
+    from bellman_mpc_tpu_torch.parallel import BatchProver
+
+    want_bytes = [proof_to_bytes(p) for p in want]
+    out = {}
+    for strategy in LIMB_STRATEGIES:
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        bp = BatchProver(engine, params, MiMCDemo(constants, 0, 0), msm_strategy=strategy,
+                         pippenger_c=PIPPENGER_C)
+        torch.cuda.synchronize()
+        build_s = time.perf_counter() - t0
+        tables = [[n, k, c] for n, k, c, _ in bp.table_info()]
+        assert all(c == 8 for _, _, c in tables) and len(tables) == (5 if strategy == "table" else 0), tables
+        args = bp.encode_circuits(circuits)
+        res, c_step, step_s = counted(kl, lambda: bp.step(*args))
+        proofs, c_dec, decode_s = counted(kl, lambda: bp.decode(*res))
+        for what, c, n in (("step", c_step, k4["step"]), ("decode", c_dec, k4["decode"])):
+            assert c["mont_mul"] == n, (strategy, what, c, n)
+            check_no_fold(c, f"{strategy} {what}")
+        assert [proof_to_bytes(p) for p in proofs] == want_bytes, f"{strategy}: proofs differ from rns's"
+        out[strategy] = {"build_s": build_s, "step_s": step_s, "decode_s": decode_s,
+                         "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30,
+                         "k4_step": c_step["mont_mul"], "k4_decode": c_dec["mont_mul"],
+                         "fold_launches": c_step["rns_fold_window"] + c_step["rns_fold_window_g2"],
+                         "tables": tables}
+        log(f"strategy {strategy}: {out[strategy]}")
+        del bp, args, res
+    torch.cuda.empty_cache()
+    return out
+
+
+def domain_h(kl, engine, circuit) -> dict:
+    """Phase 11d: h(x) of one witness through EvaluationDomain (ifft and
+    coset_fft of a, b and c, mul_assign, sub_assign, divide_by_z_on_coset,
+    icoset_fft) equal to _h_pipeline's limbs; its 15 exp + 10 multiplies
+    are K4's launches."""
+    import torch
+
+    from bellman_mpc_tpu_torch.groth16.prover import _h_pipeline, synthesize_witness
+    from bellman_mpc_tpu_torch.ops.domain import EvaluationDomain, domain_size_for
+
+    fr, host, dev = engine.fr, engine.fr_host, engine.device
+    prover = synthesize_witness(engine, circuit)
+    m, exp = domain_size_for(len(prover.a), host)
+
+    def run():
+        a, b, c = (EvaluationDomain.from_coeffs(fr, host, v, dev) for v in (prover.a, prover.b, prover.c))
+        for d in (a, b, c):
+            d.ifft()
+            d.coset_fft()
+        a.mul_assign(b)
+        a.sub_assign(c)
+        a.divide_by_z_on_coset()
+        a.icoset_fft()
+        return a.coeffs
+
+    got, c, s = counted(kl, run)
+    assert c["mont_mul"] == 15 * exp + 10, c
+    check_no_fold(c, "EvaluationDomain h(x)")
+    abc = (fr.encode(list(v) + [0] * (m - len(v)), device=dev) for v in (prover.a, prover.b, prover.c))
+    assert torch.equal(got, _h_pipeline(fr, host, exp)(*abc)), "EvaluationDomain h(x) != _h_pipeline's"
+    return {"m": m, "s": s, "k4": c["mont_mul"]}
+
+
+def strategies_phase(kl, engine, params, constants, circuits, proofs, k4) -> dict:
+    """Phase 11: the limb strategies (a), setup under BMT_FIXED_BASE=comb
+    (b), a sequential proof under BMT_MSM_STRATEGY=pippenger (c) and h(x)
+    through EvaluationDomain (d)."""
+    from bellman_mpc_tpu_torch.groth16 import (
+        create_random_proof,
+        generate_random_parameters,
+        params_to_bytes,
+        proof_to_bytes,
+    )
+    from bellman_mpc_tpu_torch.models import MiMCDemo
+
+    out = {"strategies": limb_strategies(kl, engine, params, constants, circuits, proofs, k4)}
+    with environ(BMT_FIXED_BASE="comb"):
+        comb, c, out["comb_setup_s"] = counted(kl, lambda: generate_random_parameters(engine, MiMCDemo(constants)))
+    check_no_fold(c, "comb setup")
+    assert params_to_bytes(comb) == params_to_bytes(params), "comb setup's parameters differ"
+    with environ(BMT_MSM_STRATEGY="pippenger"):
+        seq, c, out["pippenger_sequential_s"] = counted(kl, lambda: create_random_proof(engine, circuits[0], params))
+    assert c["mont_mul"] == k4["sequential"], c
+    check_no_fold(c, "pippenger sequential proof")
+    assert proof_to_bytes(seq) == proof_to_bytes(proofs[0]), "pippenger sequential proof != batch proof 0"
+    out["domain_h"] = domain_h(kl, engine, circuits[0])
+    return out
+
+
 def int32_ops_per_s() -> float:
     """The card's peak rate of 32-bit integer instructions: SMs x 64 per
     clock x the maximum SM clock that nvidia-smi reports."""
@@ -1142,6 +1278,16 @@ def main() -> int:
     }
     print("ceremony: " + json.dumps(ceremony_line) + f" on {smi}", flush=True)
 
+    # phase 11: the limb strategies, the comb setup, the pippenger sequential
+    # proof and h(x) through EvaluationDomain
+    st = strategies_phase(kl, engine, params, constants, circuits, proofs, k4)
+    strategy_line = {"rns": {"build_s": prover_build_s, "step_s": step_s, "decode_s": decode_s,
+                             "k4_step": step_counts["mont_mul"]},
+                     **st["strategies"], "ladder_setup_s": setup_s, "comb_setup_s": st["comb_setup_s"],
+                     "ladder_sequential_s": seq_s, "pippenger_sequential_s": st["pippenger_sequential_s"],
+                     "domain_h": st["domain_h"]}
+    print("strategies: " + json.dumps(strategy_line) + f" on {smi}", flush=True)
+
     # the kernels' line
     int_rate = int32_ops_per_s()
     k4_timed = checks["mont_mul"]["timed"]
@@ -1180,6 +1326,7 @@ def main() -> int:
                 launches_verify=ver["k4_per_verify"], launches_batch_verify=ver["k4_per_verify"],
                 launches_eq_batch=pa["k4"]["eq_batch"], launches_contribution_check=ck["k4_per_check"],
                 launches_mock_proof_L2=mk["k4"], launches_g1_intt=tr["g1_k4"], launches_g2_intt=tr["g2_k4"],
+                **{f"launches_step_{k}": v["k4_step"] for k, v in st["strategies"].items()},
                 graph_floor_ms=checks["mont_mul"]["graph_floor_ms"],
                 shapes=[{"shape": [24, n], "ms": t["ms"], "eager_ms": t["eager_ms"], "plain_ms": t["plain_ms"],
                          "bound_ms": k4_bounds[n][0], "bound_by": k4_bounds[n][1]} for n, t in k4_timed.items()])
@@ -1194,6 +1341,8 @@ def main() -> int:
         "range_prove_batch_s": r_prove_s, "range_sequential_proof_s": r_seq_s,
         "range_tables": [[n, k, c] for n, k, c, _ in r_info], "B": B_PROOFS, "m": m,
         "ceremony_check_s": ck["check_s"], "anddemo_ceremony_s": lc["lagrange_s"],
+        **{f"{k}_step_s": v["step_s"] for k, v in st["strategies"].items()},
+        "comb_setup_s": st["comb_setup_s"],
         "peak_mem_gib": peak_mem_gib,
         "int32_ops_per_s": int_rate, "total_s": total_s,
     }), flush=True)

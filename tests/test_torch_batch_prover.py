@@ -11,7 +11,9 @@ prove -> verify for MiMC rounds=8 (domain 32), held against the reference.
 * In a subprocess with jax made unimportable, the port runs its own
   setup -> prove -> verify, a sequential RangeDemo proof on parameters
   read from the port's serialized bytes, and the mock ceremony; it imports
-  the ceremony, checkpoint, group-NTT and Gt-byte modules.
+  the ceremony, checkpoint, group-NTT and Gt-byte modules and the limb MSM,
+  comb and EvaluationDomain entry points, and builds a table-strategy
+  BatchProver.
 """
 
 import os
@@ -112,11 +114,16 @@ from bellman_mpc_tpu_torch.ops import group_ntt, kernel_lib, mont_kernels, pairi
 from bellman_mpc_tpu_torch.groth16 import mpc, mpc_serialize, verifier_batch
 from bellman_mpc_tpu_torch.utils import gt_format, gt_parse
 from bellman_mpc_tpu_torch.parallel import BatchProver
+from bellman_mpc_tpu_torch.ops.msm import batch_mul_comb_host, msm_flat_pippenger
+from bellman_mpc_tpu_torch.ops.domain import EvaluationDomain
+assert callable(EvaluationDomain.coset_fft)
 eng = tg.Bls12Engine("cpu")
 host = eng.fr_host
 constants = mimc_constants(host, seed=9, rounds=8)
 params = tg.generate_random_parameters(eng, MiMCDemo(constants))
-bp = BatchProver(eng, params, MiMCDemo(constants, 0, 0))
+bp = BatchProver(eng, params, MiMCDemo(constants, 0, 0), msm_strategy="rns")
+assert [c for _, _, c, _ in BatchProver(eng, params, MiMCDemo(constants, 0, 0),
+                                        msm_strategy="table").table_info()] == [4] * 5
 rng = random.Random(8)
 wit = [(rng.randrange(host.p), rng.randrange(host.p)) for _ in range(2)]
 proofs = bp.prove_batch([MiMCDemo(constants, a, b) for a, b in wit])

@@ -1,4 +1,7 @@
-"""The CUDA kernels against their plain PyTorch versions, on the card.
+"""The CUDA kernels against their plain PyTorch versions, on the card, and
+the port's device paths against the CPU or the host oracle: the pairing,
+the ceremony, the group iNTT, the limb MSMs and the comb, and every
+BatchProver strategy against the rns proofs.
 
 Imports neither jax nor the reference, so it runs on the GPU machine:
 
@@ -308,3 +311,102 @@ def test_device_group_intt_matches_host_butterflies(dev, group):
     got = grp.intt(pts, eng.fr_host)
     assert kernel_lib.plain_counts["mont_mul"] == 0 and kernel_lib.launch_counts["mont_mul"] > 0
     assert got == GroupAPI.intt(grp, pts, eng.fr_host)
+
+
+def _no_fold():
+    return (kernel_lib.launch_counts["rns_fold_window"] == kernel_lib.launch_counts["rns_fold_window_g2"]
+            == kernel_lib.launch_counts["rns_mul_many"] == 0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize(
+    "kind,g2",
+    [("pippenger", False), ("pippenger_batched", False), ("pippenger_batched", True),
+     ("flatpip", False), ("table", False), ("table_affine", False), ("comb", False), ("comb", True)],
+    ids=["pippenger", "pippenger_batched-G1", "pippenger_batched-G2", "flatpip", "table",
+         "table_affine", "comb-G1", "comb-G2"],
+)
+def test_limb_msms_match_cpu(dev, kind, g2):
+    """The limb MSMs and the comb (ops/msm.py) on the card give the same
+    points as the same call on the CPU (n = 16, B = 2, c = 4; an identity
+    base, duplicate digits), with no plain multiply and no fold kernel."""
+    from bellman_mpc_tpu_torch.curves.device import g1_device, g2_device, scalars_to_bits
+    from bellman_mpc_tpu_torch.ops import msm
+
+    grp, hostg = (g2_device, G2) if g2 else (g1_device, G1)
+    rng = random.Random(17)
+    c = 4
+    if kind == "comb":
+        base = hostg.mul(hostg.generator, 999)
+        exps = [0, 1, 2, R - 1] + [rng.randrange(R) for _ in range(4)]
+        kernel_lib.reset_launch_counts()
+        got = msm.batch_mul_comb_host(grp, base, exps, dev)
+        assert kernel_lib.plain_counts["mont_mul"] == 0 and _no_fold()
+        assert got == msm.batch_mul_comb_host(grp, base, exps, "cpu")
+        return
+    bases = [hostg.mul(hostg.generator, rng.randrange(2, 500)) for _ in range(16)]
+    bases[3] = None
+    scal = [[7] * 8 + [255] * 4 + [0, 1, R - 1, rng.randrange(R)], [rng.randrange(R) for _ in range(16)]]
+    bits = torch.stack([scalars_to_bits(s, 255) for s in scal], dim=1)
+
+    def run(device):
+        ops = grp.ops
+        pts = grp.encode_points(bases, device)
+        digits = msm.digits_from_bits(bits.to(device), c)
+        if kind == "pippenger":
+            return tuple(x[..., None] for x in msm.msm_pippenger(ops, pts, digits[:, 0], c))
+        if kind == "pippenger_batched":
+            return msm.msm_pippenger_batched(ops, pts, digits, c)
+        if kind == "flatpip":
+            return msm.msm_flat_pippenger(ops, msm.shifted_bases(ops, pts, c), digits, c)
+        if kind == "table":
+            return msm.msm_table(ops, msm.window_tables(ops, pts, c), digits)
+        return msm.msm_table_affine(ops, msm.window_tables_affine(ops, pts, c), msm.signed_digits(digits, c))
+
+    kernel_lib.reset_launch_counts()
+    out = run(dev)
+    assert out[0].is_cuda
+    got = grp.decode_points(tuple(x[..., 0] for x in out))
+    assert kernel_lib.plain_counts["mont_mul"] == 0 and _no_fold()
+    assert got == grp.decode_points(tuple(x[..., 0] for x in run("cpu")))
+
+
+@pytest.fixture(scope="module")
+def mimc8():
+    """MiMC rounds=8 on the card: its CRS, two witnesses and the rns
+    strategy's proofs of them ("auto" on a CUDA engine)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: run on the GPU machine")
+    from bellman_mpc_tpu_torch.groth16 import Bls12Engine, generate_random_parameters
+    from bellman_mpc_tpu_torch.models import MiMCDemo, mimc_constants
+    from bellman_mpc_tpu_torch.parallel import BatchProver
+
+    eng = Bls12Engine("cuda:0")
+    constants = mimc_constants(eng.fr_host, seed=9, rounds=8)
+    params = generate_random_parameters(eng, MiMCDemo(constants))
+    bp = BatchProver(eng, params, MiMCDemo(constants, 0, 0))
+    assert bp.msm_strategy == "rns"
+    rng = random.Random(18)
+    circuits = [MiMCDemo(constants, rng.randrange(eng.fr_host.p), rng.randrange(eng.fr_host.p))
+                for _ in range(2)]
+    return eng, params, constants, circuits, bp.prove_batch(circuits)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("strategy,signed", [("ladder", "1"), ("table", "1"), ("table", "0"),
+                                             ("pippenger", "1"), ("flatpip", "1")],
+                         ids=["ladder", "table", "table-unsigned", "pippenger", "flatpip"])
+def test_batch_prover_strategies_match_rns(mimc8, strategy, signed, monkeypatch):
+    """Each limb strategy's BatchProver on the card (pippenger_c = 4, the
+    signed tables at pick_table_c's width, the unsigned at 4) gives the rns
+    strategy's proofs, with no plain multiply and no fold kernel."""
+    from bellman_mpc_tpu_torch.models import MiMCDemo
+    from bellman_mpc_tpu_torch.parallel import BatchProver
+
+    eng, params, constants, circuits, want = mimc8
+    monkeypatch.setenv("BMT_TABLE_SIGNED", signed)
+    kernel_lib.reset_launch_counts()
+    bp = BatchProver(eng, params, MiMCDemo(constants, 0, 0), msm_strategy=strategy, pippenger_c=4)
+    assert bp.prove_batch(circuits) == want
+    assert kernel_lib.plain_counts["mont_mul"] == 0 and kernel_lib.launch_counts["mont_mul"] > 0
+    assert _no_fold()

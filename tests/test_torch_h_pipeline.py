@@ -36,7 +36,7 @@ def test_ntt_matches_reference(inverse):
 def test_evaluation_domain_ifft():
     v = _vals(2, 10)
     rd = rdom.EvaluationDomain.from_coeffs(rfr, fr_host, v)
-    td = tdom.EvaluationDomain.from_coeffs(tfr, fr_host, v)
+    td = tdom.EvaluationDomain.from_coeffs(tfr, fr_host, v, "cpu")
     rd.ifft()
     td.ifft()
     assert td.into_coeffs() == rd.into_coeffs()

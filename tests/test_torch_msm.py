@@ -1,6 +1,9 @@
-"""The port's RNS window-fold MSM (ops/msm.py, padded tables, plain fold
-kernels on the CPU) vs the host MSM oracle at n=4, B=2, c=4 on G1 and G2,
-plus the scalar-digit helpers vs the reference (tolerance 0)."""
+"""The port's MSMs (ops/msm.py) on the CPU against the host MSM oracle: the
+RNS window fold (padded tables, plain fold kernels) at n=4, B=2, c=4 on G1
+and G2; the limb strategies (bucket method, flat bucket pass, projective and
+affine tables) at n=16, B=2, c=4 with an identity base and duplicate
+digits; the comb and the host-facing MSM under their opt-in variables; plus
+the scalar-digit helpers vs the reference (tolerance 0)."""
 
 import random
 
@@ -62,3 +65,89 @@ def test_batch_mul_host_ladder():
     exps = [rng.randrange(R) for _ in range(5)]
     got = tmsm.batch_mul_host(tdev.g1_device, g, exps, "cpu")
     assert got == [chost.G1.mul(g, e) for e in exps]
+
+
+def _msm_case(hostg, dev, seed, n=16, B=2, c=4):
+    """n bases (one the identity), B scalar sets (duplicate digits, 0 and
+    R - 1 among them), the encoded bases, window digits and the oracle's
+    answers."""
+    rng = random.Random(seed)
+    bases = [hostg.mul(hostg.generator, rng.randrange(2, 500)) for _ in range(n)]
+    bases[3] = None
+    scal = [[rng.randrange(R) for _ in range(n)] for _ in range(B)]
+    scal[0][:8] = [7] * 8
+    scal[0][8:12] = [255] * 4
+    scal[1][0], scal[1][1] = 0, R - 1
+    bits = torch.stack([tdev.scalars_to_bits(s, 255) for s in scal], dim=1)
+    want = [hostg.msm([p for p in bases if p is not None], [s for p, s in zip(bases, sc) if p is not None])
+            for sc in scal]
+    return dev.encode_points(bases, "cpu"), tmsm.digits_from_bits(bits, c), want
+
+
+def _assert_points(hostg, dev, out, want):
+    got = dev.decode_points(tuple(x[..., 0] for x in out))
+    assert len(got) == len(want) and all(hostg.eq(g, w) for g, w in zip(got, want))
+
+
+@pytest.mark.parametrize("g2", [False, True], ids=["G1", "G2"])
+def test_msm_pippenger_batched_vs_host(g2):
+    hostg, dev = (chost.G2, tdev.g2_device) if g2 else (chost.G1, tdev.g1_device)
+    pts, digits, want = _msm_case(hostg, dev, 11)
+    _assert_points(hostg, dev, tmsm.msm_pippenger_batched(dev.ops, pts, digits, 4), want)
+
+
+@pytest.mark.parametrize("kind", ["pippenger", "flatpip", "table", "table_affine"])
+def test_limb_msms_vs_host(kind):
+    """msm_pippenger (one scalar set), msm_flat_pippenger over shifted bases,
+    msm_table over projective tables and msm_table_affine over affine tables
+    with signed digits, on G1."""
+    hostg, dev = chost.G1, tdev.g1_device
+    ops, c = dev.ops, 4
+    pts, digits, want = _msm_case(hostg, dev, 12)
+    if kind == "pippenger":
+        out = tmsm.msm_pippenger(ops, pts, digits[:, 0], c)
+        assert hostg.eq(dev.decode_points(out)[0], want[0])
+        return
+    if kind == "flatpip":
+        out = tmsm.msm_flat_pippenger(ops, tmsm.shifted_bases(ops, pts, c), digits, c)
+    elif kind == "table":
+        out = tmsm.msm_table(ops, tmsm.window_tables(ops, pts, c), digits)
+    else:
+        out = tmsm.msm_table_affine(ops, tmsm.window_tables_affine(ops, pts, c),
+                                    tmsm.signed_digits(digits, c))
+    _assert_points(hostg, dev, out, want)
+
+
+@pytest.mark.parametrize("g2", [False, True], ids=["G1", "G2"])
+def test_comb_matches_host_and_ladder(g2, monkeypatch):
+    """batch_mul_host under BMT_FIXED_BASE=comb (batch_mul_comb_host) on
+    tests/test_comb.py's exponents against the host multiply, and against
+    batch_mul_host's default, the ladder."""
+    rng = random.Random(22 if g2 else 21)
+    if g2:
+        hostg, dev = chost.G2, tdev.g2_device
+        base = hostg.mul(hostg.generator, 999)
+        exps = [1, rng.randrange(R), 2, 0]
+    else:
+        hostg, dev = chost.G1, tdev.g1_device
+        base = hostg.mul(hostg.generator, 12345)
+        exps = [0, 1, 2, R - 1, rng.randrange(R), rng.randrange(R), 7]
+    monkeypatch.setenv("BMT_FIXED_BASE", "comb")
+    got = tmsm.batch_mul_host(dev, base, exps, "cpu")
+    assert got == [hostg.mul(base, e) for e in exps]
+    monkeypatch.delenv("BMT_FIXED_BASE")
+    small = [i for i, e in enumerate(exps) if e < 8]  # a short ladder
+    assert tmsm.batch_mul_host(dev, base, [exps[i] for i in small], "cpu") == [got[i] for i in small]
+
+
+def test_msm_host_pippenger_matches_default(monkeypatch):
+    """msm_host under BMT_MSM_STRATEGY=pippenger (64 bases, its threshold:
+    msm_pippenger_host at c = 8) equals its default, the ladder."""
+    rng = random.Random(23)
+    g = chost.G1.generator
+    bases = [chost.G1.mul(g, rng.randrange(1, 1000)) for _ in range(64)]
+    scalars = [rng.randrange(R) for _ in range(64)]
+    scalars[:6] = [0, 1, R - 1, 5, 5, 5]
+    default = tmsm.msm_host(tdev.g1_device, bases, scalars, "cpu")
+    monkeypatch.setenv("BMT_MSM_STRATEGY", "pippenger")
+    assert chost.G1.eq(tmsm.msm_host(tdev.g1_device, bases, scalars, "cpu"), default)
