@@ -10,7 +10,11 @@ subtraction, and with it the residues.
 `point_add_mixed` is also the formula the fold kernels run
 (ops/fold_kernels.py): the plain versions call it over a padded-layout shim,
 and the same call, replayed on the host, yields the K sequence the CUDA
-kernels are handed.
+kernels are handed.  The reference's other helpers are here too, held
+against it by the tests: `point_double`, `point_select`, `is_stored_zero`
+(its XLA fold tests the sentinel with it; the port's fold kernels and
+their plain versions test it inside) and the bound proofs
+`mixed_add_fixpoint` / `add_fixpoint`.
 """
 
 from __future__ import annotations
@@ -68,6 +72,11 @@ class RnsG1Ops:
 
     def select(self, cond, a: RnsVal, b: RnsVal) -> RnsVal:
         return RnsVal(self.f, torch.where(cond[None], a.res, b.res), max(a.a, b.a))
+
+    def is_stored_zero(self, a: RnsVal):
+        """All base channels zero: the exact integer 0 (the stored identity
+        sentinel), not merely 0 mod p."""
+        return torch.all(a.res[: self.f.k] == 0, dim=0)
 
     def wrap(self, res: torch.Tensor, a) -> RnsVal:
         return RnsVal(self.f, res, a)
@@ -130,6 +139,9 @@ class RnsG2Ops:
     def select(self, cond, a: RnsVal, b: RnsVal) -> RnsVal:
         return RnsVal(self.f, torch.where(cond[None, None], a.res, b.res), max(a.a, b.a))
 
+    def is_stored_zero(self, a: RnsVal):
+        return torch.all(a.res[: self.f.k] == 0, dim=0).all(dim=0)
+
     def wrap(self, res: torch.Tensor, a) -> RnsVal:
         return RnsVal(self.f, res, a)
 
@@ -139,6 +151,10 @@ class RnsG2Ops:
 
 def point_identity(ops, batch, device) -> RPoint:
     return (ops.zero(batch, device), ops.one(batch, device), ops.zero(batch, device))
+
+
+def point_select(ops, cond, p: RPoint, q: RPoint) -> RPoint:
+    return tuple(ops.select(cond, a, b) for a, b in zip(p, q))
 
 
 def point_add(ops, p: RPoint, q: RPoint) -> RPoint:
@@ -210,6 +226,18 @@ def point_add_mixed(ops, p: RPoint, q: Tuple[RnsVal, RnsVal]) -> RPoint:
     return (ops.sub(q1, q2), ops.add(q3, q4), ops.add(q5, q6))
 
 
+def point_double(ops, p: RPoint) -> RPoint:
+    """Doubling, RCB15 Algorithm 9 (a=0)."""
+    X, Y, Z = p
+    t0, t1, t2r, txy = ops.mul_many([(Y, Y), (Y, Z), (Z, Z), (X, Y)])
+    t2 = ops.mul_b3(t2r)
+    z8 = t0.scale(8)
+    y3m = ops.add(t0, t2)
+    t0a = ops.sub(t0, t2.scale(3))
+    p1, p2, p3, p4 = ops.mul_many([(t2, z8), (t1, z8), (t0a, y3m), (t0a, txy)])
+    return (p4.scale(2), ops.add(p1, p3), p2)
+
+
 def tree_reduce(ops, p: RPoint, cap) -> RPoint:
     """Sum points along the LAST batch axis (a power of two), first half +
     second half at every level, re-pinning the coordinate bound to `cap`
@@ -229,6 +257,31 @@ def tree_reduce(ops, p: RPoint, cap) -> RPoint:
         X, Y, Z = (ops.wrap(v.res, cap) for v in (X, Y, Z))
         n //= 2
     return (X, Y, Z)
+
+
+# ----------------------------------------------------- fixpoint verification
+
+
+def mixed_add_fixpoint(ops, acc_bound: Fraction, table_bound: Fraction):
+    """Host-side proof that `point_add_mixed` maps accumulator coordinates
+    bounded by acc_bound (table coordinates by table_bound) back inside
+    acc_bound, every intermediate within the RNS range (RnsVal's
+    constructor asserts it): the formula run on one-lane dummies."""
+    mk = lambda a: ops.wrap(ops.zero((1,), "cpu").res, Fraction(a))
+    X3, Y3, Z3 = point_add_mixed(ops, (mk(acc_bound),) * 3, (mk(table_bound),) * 2)
+    got = max(X3.a, Y3.a, Z3.a)
+    assert got <= acc_bound, f"mixed-add bound fixpoint fails: {acc_bound} -> {got}"
+    return got
+
+
+def add_fixpoint(ops, cap: Fraction):
+    """The same for `point_add` at the cap (the tree reduction's halvings)."""
+    mk = lambda a: ops.wrap(ops.zero((1,), "cpu").res, Fraction(a))
+    p = (mk(cap),) * 3
+    X3, Y3, Z3 = point_add(ops, p, p)
+    got = max(X3.a, Y3.a, Z3.a)
+    assert got <= cap, f"add bound fixpoint fails: {cap} -> {got}"
+    return got
 
 
 # -------------------------------------------------------- limb <-> RNS bridge

@@ -10,11 +10,16 @@ Representation invariants (unchanged):
   * values are "lazy":     0 <= value < 2*p
   * unless stated otherwise values are in Montgomery form  x*R mod p.
 
-Carries use the reference's loop-free "flat" strategy (static carry folding
-plus a Hillis-Steele carry lookahead): a handful of tensor ops per carry
-chain instead of one op per limb.  Every result is the unique canonical-digit
-representation of a value the reference computes too, so the reference's CPU
-"scan" strategy and this one agree limb for limb.
+Two carry strategies, as in the reference.  "flat" (the default on every
+device): static carry folding plus a Hillis-Steele carry lookahead, a
+handful of tensor ops per carry chain.  "scan" (BMT_CARRIES=scan): one
+sequential pass over the limbs, a few tensor ops per limb (the reference's
+lax.scan chains, its default on the XLA CPU backend).  BMT_CARRIES is read
+at every call (`_flat_carries`), so it can be switched inside a process.
+Every result is the unique canonical-digit representation of the same
+value, so both strategies, here and in the reference, agree limb for limb.
+`LimbField.mul` is the limb Montgomery kernel on a CUDA tensor under either
+strategy; only the carry paths outside the multiply change.
 
 Constants live on the CPU and are copied to a tensor's device on first use
 there (no module-level device state).  The lazy columns' bound proofs are
@@ -26,6 +31,7 @@ and its asserts hold for every call that reuses it.
 from __future__ import annotations
 
 import functools
+import os
 from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -36,6 +42,13 @@ from ..ops.mont_kernels import mont_mul
 
 LIMB_BITS = 11
 LIMB_MASK = (1 << LIMB_BITS) - 1
+
+
+def _flat_carries() -> bool:
+    """True for the loop-free carry strategy (the port's default on every
+    device); BMT_CARRIES=scan selects the sequential one, =flat the flat
+    one.  Read at call time."""
+    return os.environ.get("BMT_CARRIES") != "scan"
 
 
 def _shift_down(t: torch.Tensor, fill) -> torch.Tensor:
@@ -142,10 +155,53 @@ class LimbField:
         borrow_in = _shift_down(borrow_out, False).to(torch.int32)
         return (d - borrow_in) & LIMB_MASK, borrow_out[-1]
 
+    def propagate(self, t: torch.Tensor) -> torch.Tensor:
+        """Sequential carry propagation along the limb axis.  Accepts limbs
+        in (-2^31, 2^31) (arithmetic >> floors, so negative ones borrow);
+        the represented value must fit the limb count."""
+        carry = torch.zeros_like(t[0])
+        out = torch.empty_like(t)
+        for i in range(t.shape[0]):
+            v = t[i] + carry
+            carry = v >> LIMB_BITS
+            out[i] = v & LIMB_MASK
+        return out
+
+    def _sub_scan(self, x: torch.Tensor, m: torch.Tensor):
+        """x - m with a sequential borrow chain (the scan strategy); returns
+        (diff digits, total_borrow)."""
+        if m.dim() == 1:
+            m = self._bc(m, x)
+        carry = torch.zeros(torch.broadcast_shapes(x.shape[1:], m.shape[1:]), dtype=torch.int32,
+                            device=x.device)
+        d = torch.empty((x.shape[0],) + tuple(carry.shape), dtype=torch.int32, device=x.device)
+        for i in range(x.shape[0]):
+            v = x[i] - m[i] + carry
+            carry = v >> LIMB_BITS
+            d[i] = v & LIMB_MASK
+        return d, carry != 0
+
     def _cond_sub(self, x: torch.Tensor, m: torch.Tensor) -> torch.Tensor:
         """Subtract the (L,) constant m when x >= m (branch-free)."""
-        d, borrow = self._sub_flat(x, m)
+        sub = self._sub_flat if _flat_carries() else self._sub_scan
+        d, borrow = sub(x, m)
         return torch.where(borrow, x, d)
+
+    def _scan_reduce2(self, t: torch.Tensor) -> torch.Tensor:
+        """One sequential pass computing the digits of t and of t - 2p;
+        t - 2p where it is non-negative (the scan strategy's add/sub/neg)."""
+        m = self._bc(self._2p(t.device), t)
+        c1 = torch.zeros_like(t[0])
+        c2 = torch.zeros_like(t[0])
+        d1 = torch.empty_like(t)
+        d2 = torch.empty_like(t)
+        for i in range(t.shape[0]):
+            v1 = t[i] + c1
+            v2 = t[i] - m[i] + c2
+            c1, c2 = v1 >> LIMB_BITS, v2 >> LIMB_BITS
+            d1[i] = v1 & LIMB_MASK
+            d2[i] = v2 & LIMB_MASK
+        return torch.where(c2 == 0, d2, d1)
 
     def _p(self, device) -> torch.Tensor:
         return self._vec(self._p_list, device)
@@ -155,16 +211,22 @@ class LimbField:
 
     # ------------------------------------------------------------- arithmetic
     def add(self, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+        if not _flat_carries():
+            return self._scan_reduce2(a + b)
         t = self._normalize(self._fold(a + b, steps=1))
         return self._cond_sub(t, self._2p(t.device))
 
     def sub(self, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+        if not _flat_carries():
+            return self._scan_reduce2(a - b + self._bc(self._2p(a.device), a))
         # a + (2p - b); b < 2p so the inner subtraction never borrows.
         twop = self._bc(self._2p(b.device), b).expand(b.shape)
         nb, _ = self._sub_flat(twop, b)
         return self.add(a, nb)
 
     def neg(self, a: torch.Tensor) -> torch.Tensor:
+        if not _flat_carries():
+            return self._scan_reduce2(self._bc(self._2p(a.device), a) - a)
         twop = self._bc(self._2p(a.device), a).expand(a.shape)
         t, _ = self._sub_flat(twop, a)
         return self._cond_sub(t, self._2p(a.device))
@@ -199,6 +261,8 @@ class LimbField:
             t[i + 1 : i + L] += m * p_rest
         r = t[L:].clone()
         r[0] += carry
+        if not _flat_carries():
+            return self.propagate(r)
         return self._normalize(self._fold(r, steps=fold_steps))
 
     def mul(self, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -295,6 +359,9 @@ class LimbField:
         nb = self.nbytes
         return [int.from_bytes(raw[i * nb : (i + 1) * nb], "little") for i in range(n)]
 
+    def decode_one(self, arr: torch.Tensor, mont: bool = True) -> int:
+        return self.decode(arr.reshape(self.L, 1), mont=mont)[0]
+
     def pack_std(self, values: Sequence[int]) -> np.ndarray:
         """Host ints -> (N, nbytes) uint8 (standard form, minimal wire size)."""
         p = self.p
@@ -328,6 +395,10 @@ class LimbField:
         cols = self.mul_cols(lhs, rhs)  # (2L, k, *B)
         return [LazyCols(self, cols[:, i], _product_hi(tuple(da), tuple(db)))
                 for i, (da, db) in enumerate(dmax_pairs)]
+
+    def lazy_mul(self, a, b, da=None, db=None) -> "LazyCols":
+        d = self._dmax_lazy
+        return self.lazy_mul_many([(a, b)], [(da or d, db or d)])[0]
 
     def lazy_reduce_many(self, lcs: Sequence["LazyCols"], wide: bool = False) -> List[torch.Tensor]:
         """Reduce k LazyCols through ONE stacked Montgomery reduction."""

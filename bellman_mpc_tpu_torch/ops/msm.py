@@ -6,9 +6,13 @@ Port of bellman_mpc_tpu/ops/msm.py:
   * the `rns` main path: affine window bucket tables (`shifted_bases`,
     `window_tables_affine`, `tables_to_rns`) and the window fold over padded
     RNS tables (`msm_table_affine_rns`, every window one fold-kernel launch,
-    ops/fold_kernels.py), `pick_table_c`;
+    ops/fold_kernels.py), `pick_table_c`; its opt-ins: the GLV-2 / GLS-4
+    table extensions (`phi_extend_affine_tables`,
+    `psi_extend_affine_tables_g2`, ops/glv.py) and the segmented fold of
+    several MSMs at once (`seg_sizes`);
   * the limb strategies: per-point ladders (`msm_ladder`), the bucket
-    method (`msm_pippenger`, `msm_pippenger_batched`), the flat bucket pass
+    method (`msm_pippenger`, `msm_pippenger_batched`, which also runs
+    stacked MSMs, each over its own bases), the flat bucket pass
     over pre-shifted bases (`msm_flat_pippenger`), and the gather MSMs over
     projective (`window_tables`, `msm_table`) or affine signed-digit tables
     (`msm_table_affine`);
@@ -181,25 +185,36 @@ def msm_pippenger_batched(ops, points: Point, digits: torch.Tensor, c: int) -> P
     suffix_0); then the Horner fold over the windows with c doublings each.
     The window sums are independent, so the windows are scanned together
     (up to _SCAN_LANES lanes at a time) and only the fold is sequential.
-    Returns (L, [2,] B, 1)."""
-    W, B, N = digits.shape
+    Returns (L, [2,] B, 1).
+
+    Stacked (BMT_STACK_MSMS): digits (W, S, B, N) with points
+    (L, [2,] S, N) run S MSMs, each over its own bases, as one; returns
+    (L, [2,] S, B, 1)."""
+    W, N = digits.shape[0], digits.shape[-1]
+    batch = tuple(digits.shape[1:-1])
     nb = 1 << c
     dev = digits.device
     perm = torch.argsort(digits, dim=-1, stable=True)
     sdig = torch.gather(digits, -1, perm)
-    step = max(1, _SCAN_LANES // (B * N))
+    if len(batch) == 2:  # stacked: lane (w, s, b, i) takes base perm[w, s, b, i] of set s
+        s_idx = torch.arange(batch[0], device=dev).reshape(1, -1, 1, 1)
+        take = lambda x, pw: x[..., s_idx, pw]
+    else:
+        take = lambda x, pw: x[..., pw]
+    step = max(1, _SCAN_LANES // (int(np.prod(batch)) * N))
     parts = []
     for w0 in range(0, W, step):
         pw, dw = perm[w0:w0 + step], sdig[w0:w0 + step]
-        bucket = _bucket_sums(ops, tuple(x[..., pw] for x in points), dw, nb)
+        bucket = _bucket_sums(ops, tuple(take(x, pw) for x in points), dw, nb)
         suffix = associative_scan(lambda a, b: point_add(ops, a, b), bucket, reverse=True)
         parts.append(_sub_first(ops, tree_reduce(ops, suffix), tuple(x[..., :1] for x in suffix)))
-    sums = tuple(torch.cat([p[k] for p in parts], dim=-3) for k in range(3))  # (L, [2,] W, B, 1)
-    res = point_identity(ops, (B, 1), dev)
+    w_axis = -(len(batch) + 2)
+    sums = tuple(torch.cat([p[k] for p in parts], dim=w_axis) for k in range(3))  # (L, [2,] W, *batch, 1)
+    res = point_identity(ops, batch + (1,), dev)
     for w in range(W - 1, -1, -1):  # MSB window first
         for _ in range(c):
             res = point_double(ops, res)
-        res = point_add(ops, res, tuple(x.select(-3, w) for x in sums))
+        res = point_add(ops, res, tuple(x.select(w_axis, w) for x in sums))
     return res
 
 
@@ -373,7 +388,21 @@ def tables_to_rns(rops, lf, tables):
     return tuple(outs), bound
 
 
-def msm_table_affine_rns(rops, lf, tables, sdigits: torch.Tensor, tab_bound):
+def tables_in_lazy_range(lf, tables) -> bool:
+    """True when every coordinate of the limb tables (coords (L, [2,] W,
+    nb, N)) is below 2p, the bound `tables_to_rns` converts under (and with
+    it the fold's table bound and K schedule); checked one window at a
+    time."""
+    w_axis = tables[0].dim() - 3
+    for t in tables:
+        for w in range(t.shape[w_axis]):
+            _, borrow = lf._sub_flat(t.select(w_axis, w), lf._2p(t.device))
+            if not bool(borrow.all()):
+                return False
+    return True
+
+
+def msm_table_affine_rns(rops, lf, tables, sdigits: torch.Tensor, tab_bound, seg_sizes=None):
     """The RNS window fold over 80-row padded int16 tables (the reference's
     padded-table branches): per window, gather the |digit| bucket and fold
     it into the accumulator with ONE fold-kernel launch (K1 for G1, K2 for
@@ -382,7 +411,12 @@ def msm_table_affine_rns(rops, lf, tables, sdigits: torch.Tensor, tab_bound):
 
     tables: (80, [2,] W, nb, N) int16; sdigits: (W, B, N) signed digits.
     Returns a limb point (L, [2,] B, 1).  The accumulator is pinned to the
-    fixpoint cap (128 p for G1, 256 p for G2), asserted by the bookkeeping."""
+    fixpoint cap (128 p for G1, 256 p for G2), asserted by the bookkeeping.
+
+    seg_sizes=(n_0, ..., n_{S-1}) runs S independent MSMs as one fold: the
+    base axis holds S concatenated base sets (N = sum(n_s), each a power of
+    two), the windows fold at the full (B, N) width, and the reduction sums
+    within each segment only (`_rns_fold_reduce`).  Returns (L, [2,] B, S)."""
     from ..curves import rns_point as rpt
     from .fold_kernels import (
         G1_CAP,
@@ -413,14 +447,35 @@ def msm_table_affine_rns(rops, lf, tables, sdigits: torch.Tensor, tab_bound):
             qy = ys[:, w][:, mag[w], n_idx].to(torch.int32)
             acc = rns_fold_window(rops.f, rops.b3, acc, (qx, qy), sgn[w], tab_bound, cap)
     accv = tuple(rops.wrap(rns_unpad_rows(rops.f, r), cap) for r in acc)
-    return _rns_fold_reduce(rops, lf, accv, cap)
+    return _rns_fold_reduce(rops, lf, accv, cap, seg_sizes)
 
 
-def _rns_fold_reduce(rops, lf, acc, cap):
-    """Tree reduction of the folded accumulator + the bridge to limb form."""
+def _rns_fold_reduce(rops, lf, acc, cap, seg_sizes=None):
+    """Tree (or segment) reduction of the folded accumulator + the bridge to
+    limb form.  With seg_sizes, consecutive equal-width segments share one
+    tree reduction over a (..., count, n_s) view."""
     from ..curves import rns_point as rpt
 
-    red = rpt.tree_reduce(rops, acc, cap)
+    if seg_sizes is None:
+        red = rpt.tree_reduce(rops, acc, cap)
+        return rpt.rns_point_to_limb(rops, rops.f, lf, red)
+    assert sum(seg_sizes) == acc[0].res.shape[-1]
+    groups = []
+    for n_s in seg_sizes:
+        if groups and groups[-1][0] == n_s:
+            groups[-1][1] += 1
+        else:
+            groups.append([n_s, 1])
+    parts, off = [], 0
+    for n_s, count in groups:
+        chunk = tuple(
+            rops.wrap(v.res[..., off : off + n_s * count].reshape(tuple(v.res.shape[:-1]) + (count, n_s)), v.a)
+            for v in acc)
+        red = rpt.tree_reduce(rops, chunk, cap)  # (..., count, 1)
+        parts.append(tuple(rops.wrap(v.res[..., 0], v.a) for v in red))
+        off += n_s * count
+    red = tuple(rops.wrap(torch.cat([p[k].res for p in parts], dim=-1), max(p[k].a for p in parts))
+                for k in range(3))
     return rpt.rns_point_to_limb(rops, rops.f, lf, red)
 
 
@@ -436,6 +491,48 @@ def pick_table_c(n: int, g2: bool, budget_mb: int = 1536, nbits: int = 255) -> i
         if W * nb * n * bytes_per <= budget_mb * (1 << 20):
             best = c
     return best
+
+
+def phi_extend_affine_tables(field, tables):
+    """GLV base extension of affine limb G1 tables: (x, y) coords
+    (L, W, nb, N) -> (L, W, nb, 2N), the second half phi(T[w, b, i]) =
+    (beta x, y): phi is a group homomorphism, so the bucket table of the
+    phi-mapped bases is the phi-map of the table (ops/glv.py).  One
+    constant multiply (the limb Montgomery kernel on the card); the (0, 0)
+    identity sentinel stays exactly zero (0 * beta is 0)."""
+    from .glv import beta_g1
+
+    x, y = tables
+    x2 = field.mul_const(x, beta_g1())
+    return torch.cat([x, x2], dim=-1), torch.cat([y, y], dim=-1)
+
+
+def psi_extend_affine_tables_g2(field, tables):
+    """GLS-4 base extension of affine limb G2 tables: coords
+    (L, 2, W, nb, N) -> (L, 2, W, nb, 4N), block m holding psi^m(T[w, b, i]),
+    psi(x, y) = (c_x conj(x), c_y conj(y)) with the conjugate folded into
+    the constant products: c conj(a) = (c0 a0 + c1 a1) + (c1 a0 - c0 a1) u.
+    The (0, 0) sentinel is re-imposed with an explicit mask (the field's
+    sub does not keep an exact zero)."""
+    from .glv import psi_constants
+
+    x, y = tables
+    inf = torch.all(x == 0, dim=1).all(dim=0) & torch.all(y == 0, dim=1).all(dim=0)
+
+    def psi_coord(a, c):
+        a0, a1 = a[:, 0], a[:, 1]
+        c0, c1 = c
+        n0 = field.add(field.mul_const(a0, c0), field.mul_const(a1, c1))
+        n1 = field.sub(field.mul_const(a0, c1), field.mul_const(a1, c0))
+        out = torch.stack([n0, n1], dim=1)
+        return torch.where(inf[None, None], torch.zeros_like(out), out)
+
+    cx, cy = psi_constants()
+    xs, ys = [x], [y]
+    for _ in range(3):
+        xs.append(psi_coord(xs[-1], cx))
+        ys.append(psi_coord(ys[-1], cy))
+    return torch.cat(xs, dim=-1), torch.cat(ys, dim=-1)
 
 
 def _window_digits(scalars: Sequence[int], c: int, device, nbits: int = 255) -> torch.Tensor:

@@ -24,11 +24,31 @@ The MSM strategy is fixed at construction (`msm_strategy`):
   * "auto" (the default): "rns" on a CUDA engine, "ladder" on the CPU, the
     reference's rule keyed on the engine's device.
 The limb strategies return limb points straight to the proof assembly.
+
+The reference's opt-ins, read from the environment at construction (all
+off by default; `glv`, `merge_g1` and `stack_msms` say what was built):
+  * BMT_GLV=1 (rns): GLV-2 on G1 and GLS-4 on G2 (ops/glv.py).  The tables
+    are built for 130-bit (G1) and 66-bit (G2) scalars and extended with
+    phi (2N bases) or psi (4N bases); the step keeps std-form digits and
+    decomposes them on the device, so each G1 MSM folds 18 windows at c = 8
+    over twice the lanes and the G2 MSM 10 over four times the lanes;
+  * BMT_MERGE_G1=1 (rns): the four G1 MSMs fold as one over their
+    concatenated tables (`seg_sizes`), one K1 launch per window at the sum
+    of their widths, and a segmented tree reduction; with BMT_GLV=1 each
+    segment holds [P_s || phi(P_s)];
+  * BMT_STACK_MSMS=1 (ladder, pippenger): the four G1 MSMs run as one over
+    bases padded to the widest set by identities and stacked on an axis
+    after the limb (and component) axes.  The reference's stacked path
+    runs under vmap, where its table lookups by id(bases) fail, so rns
+    (unless merged), table and flatpip raise ValueError here;
+  * BMT_CARRIES=scan|flat: the limb carry strategy (fields/limb.py, read at
+    call time; no effect on what is built).
 Density bookkeeping is resolved at build time from a template synthesis;
 the input-wire queries ride the aux queries' power-of-two padding, as in the
 reference (8 MSMs collapse to 5).  The table window width follows the
 reference: BMT_TABLE_C, else `pick_table_c` under BMT_TABLE_MEM_MB for
-signed tables on the card, else 4.
+signed tables on the card (against the extended width and the decomposed
+scalar bits under GLV, the sum of the segments when merged), else 4.
 """
 
 from __future__ import annotations
@@ -43,6 +63,7 @@ from ..curves.device import (
     g1_device,
     g2_device,
     point_add,
+    point_identity,
     scalar_mul_bits,
     scalar_mul_const,
     tree_reduce,
@@ -54,6 +75,13 @@ from ..groth16.prover import DETERMINISTIC_R, DETERMINISTIC_S, _h_pipeline, synt
 from ..groth16.types import Parameters, Proof
 from ..ops.domain import domain_size_for, warm_twiddles
 from ..ops.fold_kernels import pad_rns_table
+from ..ops.glv import (
+    GLS_NBITS,
+    GLV_NBITS,
+    decompose_glv2_device,
+    decompose_gls4_device,
+    digits_to_bits_msb,
+)
 from ..ops.msm import (
     digits_from_bits,
     msm_flat_pippenger,
@@ -61,9 +89,12 @@ from ..ops.msm import (
     msm_table,
     msm_table_affine,
     msm_table_affine_rns,
+    phi_extend_affine_tables,
     pick_table_c,
+    psi_extend_affine_tables_g2,
     shifted_bases,
     signed_digits,
+    tables_in_lazy_range,
     tables_to_rns,
     window_tables,
     window_tables_affine,
@@ -72,8 +103,7 @@ from ..r1cs.core import Circuit
 
 NBITS = 255  # Fr scalar bits
 STRATEGIES = ("rns", "table", "pippenger", "flatpip", "ladder")
-# the reference's opt-ins that the port does not have yet (variable, value)
-_UNPORTED = (("BMT_GLV", "1"), ("BMT_MERGE_G1", "1"), ("BMT_STACK_MSMS", "1"), ("BMT_CARRIES", "scan"))
+STACKABLE = ("ladder", "pippenger")  # the strategies BMT_STACK_MSMS=1 runs
 
 
 def bits_from_std(field: LimbField, std: torch.Tensor) -> torch.Tensor:
@@ -94,6 +124,37 @@ def bits_from_mont(field: LimbField, x: torch.Tensor) -> torch.Tensor:
     return bits_from_std(field, std_from_mont(field, x))
 
 
+def glv_signed_digits(scal: torch.Tensor, c: int, logical_sizes=None) -> torch.Tensor:
+    """(L, B, N) std digits -> GLV signed window digits (W', B, 2N): one
+    device decomposition, the |k1| and |k2| bits concatenated on the base
+    axis to match the phi-extended tables, each lane's digits negated where
+    its part is negative.  With `logical_sizes` the halves are interleaved
+    per segment, to match the merged [P_s || phi(P_s)] layout."""
+    n1, m1, n2, m2 = decompose_glv2_device(scal)
+    b1, b2 = digits_to_bits_msb(m1), digits_to_bits_msb(m2)
+    if logical_sizes is None:
+        bits, neg = torch.cat([b1, b2], dim=-1), torch.cat([n1, n2], dim=-1)
+    else:
+        pb, pn, off = [], [], 0
+        for n_s in logical_sizes:
+            pb += [b1[..., off : off + n_s], b2[..., off : off + n_s]]
+            pn += [n1[..., off : off + n_s], n2[..., off : off + n_s]]
+            off += n_s
+        bits, neg = torch.cat(pb, dim=-1), torch.cat(pn, dim=-1)
+    sd = signed_digits(digits_from_bits(bits, c), c)
+    return torch.where(neg[None], -sd, sd)
+
+
+def gls_signed_digits(scal: torch.Tensor, c: int) -> torch.Tensor:
+    """(L, B, N) std digits -> GLS-4 signed window digits (W', B, 4N) matching
+    the psi-extended G2 tables."""
+    neg, mag = decompose_gls4_device(scal)
+    bits = torch.cat([digits_to_bits_msb(mag[t], GLS_NBITS) for t in range(4)], dim=-1)
+    negs = torch.cat([neg[t] for t in range(4)], dim=-1)
+    sd = signed_digits(digits_from_bits(bits, c), c)
+    return torch.where(negs[None], -sd, sd)
+
+
 def _pad_pow2_int(n: int) -> int:
     m = 1
     while m < max(n, 1):
@@ -107,15 +168,18 @@ class BatchProver:
     def __init__(self, engine, params: Parameters, circuit_template: Circuit,
                  msm_strategy: str = "auto", pippenger_c: int = 8, mesh=None):
         if mesh is not None:
-            raise NotImplementedError("mesh= is not ported yet (ROADMAP.md A4b)")
-        for var, val in _UNPORTED:
-            if os.environ.get(var) == val:
-                raise NotImplementedError(f"{var}={val} is not ported yet (ROADMAP.md A4b)")
+            raise NotImplementedError("mesh= is not ported yet (ROADMAP.md A5)")
         assert engine.name == "bls12_381"
         if msm_strategy == "auto":
             msm_strategy = "rns" if engine.device.type == "cuda" else "ladder"
         if msm_strategy not in STRATEGIES:
             raise ValueError(f"unknown msm_strategy {msm_strategy!r}")
+        self.glv = msm_strategy == "rns" and os.environ.get("BMT_GLV", "0") == "1"
+        self.merge_g1 = msm_strategy == "rns" and os.environ.get("BMT_MERGE_G1", "0") == "1"
+        self.stack_msms = os.environ.get("BMT_STACK_MSMS") == "1" and not self.merge_g1
+        if self.stack_msms and msm_strategy not in STACKABLE:
+            raise ValueError(f"BMT_STACK_MSMS=1 runs the {' and '.join(STACKABLE)} strategies, "
+                             f"not {msm_strategy!r}")
         self.engine = engine
         self.device = engine.device
         self.fr = engine.fr
@@ -180,11 +244,14 @@ class BatchProver:
 
     def _build_tables(self) -> None:
         """Per CRS base set, the strategy's build-time device work, resident:
-        "rns": affine bucket tables -> int16 RNS residues in the 80-row
-        padded layout (the limb tables are freed); "table": the limb bucket
-        tables; "flatpip": the shifted bases of sets of 16 or more."""
+        "rns": affine bucket tables (phi/psi-extended under GLV) -> int16
+        RNS residues in the 80-row padded layout (the limb tables are
+        freed), the four G1 sets as one concatenated table when merged;
+        "table": the limb bucket tables; "flatpip": the shifted bases of
+        sets of 16 or more."""
         strategy = self.msm_strategy
         self._tables = {}
+        self._merged = None
         self._sbases = {}
         self._table_signed = strategy == "rns" or (
             strategy == "table" and os.environ.get("BMT_TABLE_SIGNED", "1") == "1")
@@ -197,51 +264,147 @@ class BatchProver:
         c_env = int(os.environ.get("BMT_TABLE_C", "0"))
         budget = int(os.environ.get("BMT_TABLE_MEM_MB", "1536"))
         pick = self._table_signed and self.device.type == "cuda"
-        f = default_rns_field()
+        if self.merge_g1:
+            self._build_merged_g1(c_env, budget, pick)
         for _, crs, grp in self._base_sets():
             g2 = grp is g2_device
-            c_tab = c_env or (pick_table_c(crs[0].shape[-1], g2, budget) if pick else 4)
+            if (self.merge_g1 and not g2) or id(crs) in self._tables:
+                continue
+            n = crs[0].shape[-1]
+            nbits, n_eff = ((GLS_NBITS, 4 * n) if g2 else (GLV_NBITS, 2 * n)) if self.glv else (NBITS, n)
+            c_tab = c_env or (pick_table_c(n_eff, g2, budget, nbits) if pick else 4)
             if not self._table_signed:
                 self._tables[id(crs)] = (window_tables(grp.ops, crs, c_tab), None, c_tab)
                 continue
-            tab = window_tables_affine(grp.ops, crs, c_tab)
+            tab = self._limb_table(grp, crs, c_tab, nbits)
             if strategy == "table":
                 self._tables[id(crs)] = (tab, None, c_tab)
                 continue
             rtab, bound = tables_to_rns(rns_g2_ops() if g2 else rns_g1_ops(), bc.fp, tab)
             del tab
-            self._tables[id(crs)] = (pad_rns_table(f, rtab), bound, c_tab)
+            self._tables[id(crs)] = (pad_rns_table(default_rns_field(), rtab), bound, c_tab)
             del rtab
 
+    def _limb_table(self, grp, crs, c_tab: int, nbits: int):
+        """Signed affine limb tables of one base set, phi- (G1) or
+        psi-extended (G2) under GLV; the extended coordinates are checked
+        to lie below 2p, the bound the RNS conversion (and with it the
+        fold's table bound and K schedule) is derived under."""
+        tab = window_tables_affine(grp.ops, crs, c_tab, nbits)
+        if self.glv:
+            ext = psi_extend_affine_tables_g2 if grp is g2_device else phi_extend_affine_tables
+            tab = ext(bc.fp, tab)
+            assert tables_in_lazy_range(bc.fp, tab), "an extended table left the lazy range"
+        return tab
+
+    def _build_merged_g1(self, c_env: int, budget: int, pick: bool) -> None:
+        """The four G1 sets' RNS tables concatenated on the base axis, then
+        padded once: built one set at a time (each limb table freed after
+        its conversion), segments of the sets' widths (twice that under
+        GLV), the window width budgeted against their sum.  Aliased CRS sets
+        share a table."""
+        sets = [crs for _, crs, grp in self._base_sets() if grp is g1_device]
+        self._g1_logical_sizes = tuple(crs[0].shape[-1] for crs in sets)
+        nbits = GLV_NBITS if self.glv else NBITS
+        self._g1_seg_sizes = tuple((2 if self.glv else 1) * n for n in self._g1_logical_sizes)
+        c_tab = c_env or (pick_table_c(sum(self._g1_seg_sizes), False, budget, nbits) if pick else 4)
+        rns_tabs, by_id, bound = [], {}, None
+        for crs in sets:
+            if id(crs) not in by_id:
+                tab = self._limb_table(g1_device, crs, c_tab, nbits)
+                by_id[id(crs)], bound = tables_to_rns(rns_g1_ops(), bc.fp, tab)
+                del tab
+            rns_tabs.append(by_id[id(crs)])
+        merged = tuple(torch.cat([t[k] for t in rns_tabs], dim=-1) for k in range(2))
+        del rns_tabs, by_id
+        self._merged = (pad_rns_table(default_rns_field(), merged), bound, c_tab)
+
     def table_info(self) -> List[Tuple[str, int, int, int]]:
-        """(name, base count, window width c, table bytes) per MSM; empty for
-        the strategies without tables."""
-        return [(name, crs[0].shape[-1], self._tables[id(crs)][2],
-                 sum(t.numel() * t.element_size() for t in self._tables[id(crs)][0]))
-                for name, crs, _ in self._base_sets() if id(crs) in self._tables]
+        """(name, base count as built, window width c, table bytes) per
+        table: one entry per MSM, the merged G1 table as "g1_merged"; empty
+        for the strategies without tables."""
+        nbytes = lambda tab: sum(t.numel() * t.element_size() for t in tab)
+        out = []
+        if self._merged is not None:
+            tab, _, c = self._merged
+            out.append(("g1_merged", tab[0].shape[-1], c, nbytes(tab)))
+        for name, crs, _ in self._base_sets():
+            if id(crs) in self._tables:
+                tab, _, c = self._tables[id(crs)]
+                out.append((name, tab[0].shape[-1], c, nbytes(tab)))
+        return out
 
     # ------------------------------------------------------------------ step
     def _msm(self, grp, crs, bits):
-        """One MSM of the step: bits (NBITS, B, N) -> limb point (L, [2,] B, 1)."""
+        """One MSM of the step: bits (NBITS, B, N) -> limb point (L, [2,] B, 1);
+        under GLV (L, B, N) std digits in place of the bits."""
         strategy = self.msm_strategy
         ops = grp.ops
         if strategy in ("rns", "table"):
             tab, bound, c_tab = self._tables[id(crs)]
-            digits = digits_from_bits(bits, c_tab)
             if strategy == "rns":
-                rops = rns_g2_ops() if grp is g2_device else rns_g1_ops()
-                return msm_table_affine_rns(rops, bc.fp, tab, signed_digits(digits, c_tab), bound)
+                g2 = grp is g2_device
+                if self.glv:
+                    sd = gls_signed_digits(bits, c_tab) if g2 else glv_signed_digits(bits, c_tab)
+                else:
+                    sd = signed_digits(digits_from_bits(bits, c_tab), c_tab)
+                return msm_table_affine_rns(rns_g2_ops() if g2 else rns_g1_ops(), bc.fp, tab, sd, bound)
+            digits = digits_from_bits(bits, c_tab)
             if self._table_signed:
                 return msm_table_affine(ops, tab, signed_digits(digits, c_tab))
             return msm_table(ops, tab, digits)
         c = self.pippenger_c
         if strategy == "flatpip" and id(crs) in self._sbases:
             return msm_flat_pippenger(ops, self._sbases[id(crs)], digits_from_bits(bits, c), c)
-        if strategy == "pippenger" and crs[0].shape[-1] >= 16:
-            return msm_pippenger_batched(ops, crs, digits_from_bits(bits, c), c)
-        per_proof = tuple(x[..., None, :].expand(tuple(x.shape[:-1]) + tuple(bits.shape[1:]))
-                          for x in crs)  # the bases broadcast over B
+        return self._msm_limb(ops, crs, bits)
+
+    def _msm_limb(self, ops, bases, bits):
+        """The bucket method (pippenger, 16 bases or more) or per-proof
+        ladders and a tree sum: bases (L, [2,] [S,] N), bits (NBITS, [S,] B,
+        N) -> (L, [2,] [S,] B, 1)."""
+        c = self.pippenger_c
+        if self.msm_strategy == "pippenger" and bases[0].shape[-1] >= 16:
+            return msm_pippenger_batched(ops, bases, digits_from_bits(bits, c), c)
+        per_proof = tuple(x[..., None, :].expand(tuple(x.shape[:-1]) + tuple(bits.shape[-2:]))
+                          for x in bases)  # the bases broadcast over B
         return tree_reduce(ops, scalar_mul_bits(ops, per_proof, bits))
+
+    def _msm_merged_g1(self, scal_list):
+        """The four G1 MSMs as one fold over the merged table: the scalars
+        (bits, or std digits under GLV) concatenated on the base axis, one
+        K1 launch per window over all segments, a segmented reduction;
+        under GLV each segment's reduction recombines k1 P + k2 phi(P).
+        Returns one limb point (L, B, 1) per MSM."""
+        tab, bound, c_tab = self._merged
+        scal = torch.cat(scal_list, dim=-1)
+        if self.glv:
+            sd = glv_signed_digits(scal, c_tab, logical_sizes=self._g1_logical_sizes)
+        else:
+            sd = signed_digits(digits_from_bits(scal, c_tab), c_tab)
+        pts = msm_table_affine_rns(rns_g1_ops(), bc.fp, tab, sd, bound,
+                                   seg_sizes=self._g1_seg_sizes)  # (L, B, S)
+        return [tuple(x[..., s : s + 1] for x in pts) for s in range(len(scal_list))]
+
+    def _msm_stacked(self, grp, base_list, bits_list):
+        """The G1 MSMs as one: bases padded to the widest set with
+        identities and stacked on an axis after the limb axis, the bits
+        padded alike and stacked after the bit axis.  Returns one limb
+        point (L, B, 1) per MSM."""
+        ops = grp.ops
+        n_max = max(b[0].shape[-1] for b in base_list)
+
+        def pad_base(bs):
+            pad = n_max - bs[0].shape[-1]
+            if pad == 0:
+                return bs
+            ident = point_identity(ops, (pad,), self.device)
+            return tuple(torch.cat([x, i_], dim=-1) for x, i_ in zip(bs, ident))
+
+        padded = [pad_base(b) for b in base_list]
+        bases = tuple(torch.stack([b[k] for b in padded], dim=-2) for k in range(3))  # (L, S, n_max)
+        bits = torch.stack([torch.nn.functional.pad(b, (0, n_max - b.shape[-1])) for b in bits_list], dim=1)
+        out = self._msm_limb(ops, bases, bits)  # (L, S, B, 1)
+        return [tuple(x.select(-3, i) for x in out) for i in range(len(base_list))]
 
     def step(self, a8, b8, c8, wit_in8, wit_aux8):
         """Packed std-form bytes (B, k, nbytes) -> projective (g_a, g_b, g_c),
@@ -265,9 +428,13 @@ class BatchProver:
         def sel(bits, idx):
             return bits[:, :, torch.as_tensor(idx, dtype=torch.long, device=bits.device)]
 
-        bits_h = pad_scalars(bits_from_mont(fr, h), self.h_n)
-        bits_aux = bits_from_std(fr, wit_aux)
-        bits_in = bits_from_std(fr, wit_in)
+        if self.glv:  # std-form digits; each MSM decomposes its own
+            bits_h = pad_scalars(std_from_mont(fr, h), self.h_n)
+            bits_aux, bits_in = wit_aux, wit_in
+        else:
+            bits_h = pad_scalars(bits_from_mont(fr, h), self.h_n)
+            bits_aux = bits_from_std(fr, wit_aux)
+            bits_in = bits_from_std(fr, wit_in)
         bits_a = pad_scalars(torch.cat([bits_in, sel(bits_aux, self.a_aux_idx)], dim=-1),
                              self.crs_a[0].shape[-1])
         bits_b = pad_scalars(
@@ -275,10 +442,16 @@ class BatchProver:
             self.crs_b1[0].shape[-1])
         bits_l = pad_scalars(bits_aux, self.crs_l[0].shape[-1])
 
-        h_pt = self._msm(g1_device, self.crs_h, bits_h)
-        l_pt = self._msm(g1_device, self.crs_l, bits_l)
-        a_answer = self._msm(g1_device, self.crs_a, bits_a)
-        b1_answer = self._msm(g1_device, self.crs_b1, bits_b)
+        g1_bits = [bits_h, bits_l, bits_a, bits_b]
+        if self.merge_g1:
+            h_pt, l_pt, a_answer, b1_answer = self._msm_merged_g1(g1_bits)
+        elif self.stack_msms:
+            h_pt, l_pt, a_answer, b1_answer = self._msm_stacked(
+                g1_device, [self.crs_h, self.crs_l, self.crs_a, self.crs_b1], g1_bits)
+        else:
+            h_pt, l_pt, a_answer, b1_answer = (
+                self._msm(g1_device, crs, bits)
+                for crs, bits in zip((self.crs_h, self.crs_l, self.crs_a, self.crs_b1), g1_bits))
         b2_answer = self._msm(g2_device, self.crs_b2, bits_b)
 
         def bconst(pt):

@@ -58,7 +58,7 @@ Phases (each raises on failure; nothing is caught):
      ladder per group) checked by verify_common_paramter (10,243
      equations, one pairing_eq_batch of 12,288 lanes): accepted, and
      rejected with two tau powers swapped; (d) the Lagrange transform
-     (engine.g1/g2.intt) of its first 1024 tau points equal to L_j(tau) G;
+     (engine.g1/g2.intt) of its first 512 tau points equal to L_j(tau) G;
      prints a `ceremony:` line with the times and K4 counts;
  11. the limb MSM strategies and the rest of the slice (same MiMC-322 CRS):
      (a) BatchProver with ladder, table (signed, pick_table_c's width),
@@ -71,7 +71,20 @@ Phases (each raises on failure; nothing is caught):
      batch proof 0; (d) h(x) of witness 0 through EvaluationDomain equal to
      _h_pipeline's limbs; prints a `strategies:` line with each strategy's
      build, step and decode seconds, peak memory and K4 launches beside
-     rns's, and the comb and ladder setups' seconds.
+     rns's, and the comb and ladder setups' seconds;
+ 12. the opt-ins of BatchProver (same CRS and witnesses): (a) rns under
+     BMT_GLV=1 (GLV-2 / GLS-4), BMT_MERGE_G1=1 and both, each built, one
+     step and decode with every proof equal to the rns proofs in its 192
+     bytes, K1 and K2 launched as derived_folds says (72/10, 44/33, 23/10
+     at MiMC-322), K4 as k4_counts, no plain multiply; (b) BMT_STACK_MSMS=1
+     with pippenger (c = 8), the same checks; (c) under BMT_CARRIES=scan,
+     h(x) of witness 0 and the decode of phase 6's step equal the flat
+     run's limbs and points; prints an `opt-ins:` line with each one's
+     build, median step of 3, decode, peak memory, launches and aten
+     operator calls per step (and its GLV digit path's) beside rns's.
+     Phase 3 also holds K1 at 57,344 and 114,688 lanes and K2 at 32,768
+     lanes (the opt-ins' widths) against their plain versions and times
+     them.
 
 Prints the kernels' JSON line (every kernel with its launches on the main
 path, error, times, bound and library yardstick), the card's name and power
@@ -204,8 +217,16 @@ def gather_q(pool, lanes: int, rng: random.Random, device):
     return q, sgn
 
 
-def check_kernels(device, rng: random.Random, g1_lanes=16384, g2_lanes=8192):
-    """Phase 3: every kernel against its plain version, bit-exact."""
+# the opt-ins' fold widths at B = 16 MiMC-322 (phase 12): K1 over the merged
+# G1 table (3,584 bases; 7,168 under GLV), K2 over the psi-extended b2 table
+# (4 x 512 bases)
+WIDE_LANES = {"rns_fold_window": (57344, 114688), "rns_fold_window_g2": (32768,)}
+
+
+def check_kernels(device, rng: random.Random, g1_lanes=16384, g2_lanes=8192, wide=WIDE_LANES):
+    """Phase 3: every kernel against its plain version, bit-exact; K1 and K2
+    also at the opt-ins' widths (`wide`), each timed beside its plain
+    version."""
     import torch
 
     from bellman_mpc_tpu_torch.curves import rns_point as rpt
@@ -286,6 +307,15 @@ def check_kernels(device, rng: random.Random, g1_lanes=16384, g2_lanes=8192):
         kern = lambda: fold(f, b, acc_in, q, sgn, tab_bound, cap)
         results[name].update(ms=graph_time_ms(kern, 20), eager_ms=cuda_time_ms(kern, 20),
                              plain_ms=cuda_time_ms(lambda: plain(acc_in, q, sgn), 3))
+        results[name]["wide"] = []
+        for n in wide[name]:  # the opt-ins' widths: two chained windows, then timed
+            err, (acc_w, q_w, sgn_w) = chained(n, 2)
+            results[name]["wide"].append(dict(
+                lanes=n, max_abs_err=err,
+                ms=graph_time_ms(lambda: fold(f, b, acc_w, q_w, sgn_w, tab_bound, cap), 20),
+                plain_ms=cuda_time_ms(lambda: plain(acc_w, q_w, sgn_w), 3)))
+            results[name]["max_abs_err"] = max(results[name]["max_abs_err"], err)
+            log(f"{name}: bit-exact over 2 chained windows at {n} lanes")
     return results
 
 
@@ -620,7 +650,10 @@ def pairings_at_scale(kl, engine, device, n_eq: int = 30, rng=None) -> dict:
 
 
 CEREMONY_POWERS = 2048  # the 2m tau powers of MiMC-322's Lagrange ceremony (m = 1024)
-LAGRANGE_M = 1024
+# the Lagrange transform's size: cut from MiMC-322's m = 1024 to 512 to keep
+# the script's time as phase 12 was added (its ladders are launch-bound:
+# one fewer stage per group)
+LAGRANGE_M = 512
 # the mock Groth16 tests' trapdoor and blinding (tests/test_groth16_mock.py, tests/mod.rs:302-307)
 MOCK_TRAPDOOR = (48577, 22580, 53332, 5481, 3673)
 MOCK_BLINDING = (27134, 17146)
@@ -993,6 +1026,220 @@ def strategies_phase(kl, engine, params, constants, circuits, proofs, k4) -> dic
     return out
 
 
+OPT_INS = {"glv": {"BMT_GLV": "1"}, "merged": {"BMT_MERGE_G1": "1"},
+           "glv_merged": {"BMT_GLV": "1", "BMT_MERGE_G1": "1"}}
+# MiMC-322's K1 and K2 launches per step (c from pick_table_c at 1536 MiB:
+# 8 per set; 6 for the merged 3,584 and 7,168 bases; GLV: 18 windows of
+# 130-bit G1 scalars, 10 of 66-bit G2 scalars at c = 8), which
+# `derived_folds` must reproduce from the CRS widths
+MIMC322_FOLDS = {"glv": (72, 10), "merged": (44, 33), "glv_merged": (23, 10)}
+MIMC322_WIDTHS = (1024, 1024, 1024, 512, 512)  # h, l, a, b1, b2 bases
+
+
+def derived_folds(bp, B: int) -> dict:
+    """K1 and K2 launches per step and the lanes of each launch, from the
+    CRS widths and BatchProver's rule for c (BMT_TABLE_C, else pick_table_c
+    under BMT_TABLE_MEM_MB, against 2N bases of 130-bit scalars on G1 and 4N
+    of 66-bit ones on G2 under GLV, and the sum of the G1 widths when
+    merged): W = ceil(nbits / c) + 1 windows per table, one launch each."""
+    from bellman_mpc_tpu_torch.ops.glv import GLS_NBITS, GLV_NBITS
+    from bellman_mpc_tpu_torch.ops.msm import pick_table_c
+
+    c_env = int(os.environ.get("BMT_TABLE_C", "0"))
+    budget = int(os.environ.get("BMT_TABLE_MEM_MB", "1536"))
+    pick = lambda n, g2, nbits: c_env or pick_table_c(n, g2, budget, nbits)
+    n1 = [x[0].shape[-1] for x in (bp.crs_h, bp.crs_l, bp.crs_a, bp.crs_b1)]
+    n2 = bp.crs_b2[0].shape[-1]
+    (m1, bits1), (m2, bits2) = ((2, GLV_NBITS), (4, GLS_NBITS)) if bp.glv else ((1, NBITS), (1, NBITS))
+    sets = [m1 * sum(n1)] if bp.merge_g1 else [m1 * n for n in n1]
+    c1 = [pick(n, False, bits1) for n in sets]
+    c2 = pick(m2 * n2, True, bits2)
+    return {"k1": sum(windows(c, bits1) for c in c1), "k2": windows(c2, bits2), "c": c1 + [c2],
+            "k1_lanes": sorted({B * n for n in sets}), "k2_lanes": B * m2 * n2}
+
+
+def aten_ops(fn):
+    """(fn(), the aten operator calls fn made), counted by a dispatch mode."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    class Counter(TorchDispatchMode):
+        n = 0
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            self.n += 1
+            return func(*args, **(kwargs or {}))
+
+    with Counter() as counter:
+        out = fn()
+    return out, counter.n
+
+
+def step_ops(bp, args) -> dict:
+    """One step's aten operator calls, and those of its GLV / GLS digit
+    path (batch_prover.glv_signed_digits and gls_signed_digits: the device
+    decompositions, bits, window and signed digits) with that path's
+    seconds (synchronized around each call)."""
+    import torch
+
+    from bellman_mpc_tpu_torch.parallel import batch_prover as bpm
+
+    dec = {"calls": 0, "aten_ops": 0, "s": 0.0}
+
+    def wrap(fn):
+        def counted_fn(*a, **kw):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out, n = aten_ops(lambda: fn(*a, **kw))
+            torch.cuda.synchronize()
+            dec.update(calls=dec["calls"] + 1, aten_ops=dec["aten_ops"] + n, s=dec["s"] + time.perf_counter() - t0)
+            return out
+        return counted_fn
+
+    orig = bpm.glv_signed_digits, bpm.gls_signed_digits
+    bpm.glv_signed_digits, bpm.gls_signed_digits = wrap(orig[0]), wrap(orig[1])
+    try:
+        _, n = aten_ops(lambda: bp.step(*args))
+    finally:
+        bpm.glv_signed_digits, bpm.gls_signed_digits = orig
+    return {"aten_ops": n, "digit_path": dec}
+
+
+def opt_in(kl, engine, params, constants, circuits, want_bytes, k4, name: str) -> dict:
+    """Phase 12a, one opt-in: BatchProver(rns) built under its variables,
+    one counted step and decode, the proofs against the rns proofs' bytes,
+    K1 / K2 launches against derived_folds (and MIMC322_FOLDS at MiMC-322's
+    widths), K4 as k4_counts, no plain multiply; then the median step of 3
+    and one step's aten operator calls."""
+    import torch
+
+    from bellman_mpc_tpu_torch.groth16 import proof_to_bytes
+    from bellman_mpc_tpu_torch.models import MiMCDemo
+    from bellman_mpc_tpu_torch.parallel import BatchProver
+
+    env = OPT_INS[name]
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    with environ(**env):
+        bp = BatchProver(engine, params, MiMCDemo(constants, 0, 0), msm_strategy="rns")
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    assert (bp.glv, bp.merge_g1, bp.stack_msms) == ("BMT_GLV" in env, "BMT_MERGE_G1" in env, False)
+    B = len(circuits)
+    want = derived_folds(bp, B)
+    tables = [[n, k, c] for n, k, c, _ in bp.table_info()]
+    assert [c for _, _, c in tables] == want["c"], (name, tables, want)
+    if bp.merge_g1:
+        assert tables[0][:2] == ["g1_merged", want["k1_lanes"][0] // B], tables
+    args = bp.encode_circuits(circuits)
+    res, c_step, _ = counted(kl, lambda: bp.step(*args))
+    proofs, c_dec, decode_s = counted(kl, lambda: bp.decode(*res))
+    folds = (c_step["rns_fold_window"], c_step["rns_fold_window_g2"])
+    assert folds == (want["k1"], want["k2"]), (name, c_step, want)
+    widths = tuple(x[0].shape[-1] for x in (bp.crs_h, bp.crs_l, bp.crs_a, bp.crs_b1, bp.crs_b2))
+    if widths == MIMC322_WIDTHS:
+        assert folds == MIMC322_FOLDS[name], (name, folds)
+    assert c_step["mont_mul"] == k4["step"] and c_step["mont_mul_plain"] == 0 and c_step["rns_mul_many"] == 0, c_step
+    assert c_dec["mont_mul"] == k4["decode"], c_dec
+    check_no_fold(c_dec, f"{name} decode")
+    assert [proof_to_bytes(p) for p in proofs] == want_bytes, f"{name}: proofs differ from rns's"
+    steps = time_steps(bp, args)
+    ops = step_ops(bp, args)
+    out = {"build_s": build_s, "step_s": statistics.median(steps), "steps_s": steps, "decode_s": decode_s,
+           "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30, "k1_step": folds[0], "k2_step": folds[1],
+           "k4_step": c_step["mont_mul"], "k4_decode": c_dec["mont_mul"], "aten_ops_step": ops["aten_ops"],
+           "digit_path": ops["digit_path"], "k1_lanes": want["k1_lanes"], "k2_lanes": want["k2_lanes"],
+           "tables": tables}
+    log(f"opt-in {name}: {out}")
+    del bp, args, res
+    torch.cuda.empty_cache()
+    return out
+
+
+def stacked_pippenger(kl, engine, params, constants, circuits, want_bytes, k4) -> dict:
+    """Phase 12b: BMT_STACK_MSMS=1 with pippenger (c = 8): the four G1 MSMs
+    as one bucket-method MSM over bases stacked after the limb axis; its
+    proofs against the rns proofs' bytes, K4 as k4_counts, no fold kernel."""
+    import torch
+
+    from bellman_mpc_tpu_torch.groth16 import proof_to_bytes
+    from bellman_mpc_tpu_torch.models import MiMCDemo
+    from bellman_mpc_tpu_torch.parallel import BatchProver
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    with environ(BMT_STACK_MSMS="1"):
+        bp = BatchProver(engine, params, MiMCDemo(constants, 0, 0), msm_strategy="pippenger",
+                         pippenger_c=PIPPENGER_C)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    assert bp.stack_msms
+    args = bp.encode_circuits(circuits)
+    res, c_step, step_s = counted(kl, lambda: bp.step(*args))
+    proofs, c_dec, decode_s = counted(kl, lambda: bp.decode(*res))
+    for what, c, n in (("step", c_step, k4["step"]), ("decode", c_dec, k4["decode"])):
+        assert c["mont_mul"] == n, ("stacked pippenger", what, c, n)
+        check_no_fold(c, f"stacked pippenger {what}")
+    assert [proof_to_bytes(p) for p in proofs] == want_bytes, "stacked pippenger: proofs differ from rns's"
+    out = {"build_s": build_s, "step_s": step_s, "decode_s": decode_s,
+           "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30, "k4_step": c_step["mont_mul"]}
+    log(f"stacked pippenger: {out}")
+    del bp, args, res
+    torch.cuda.empty_cache()
+    return out
+
+
+def scan_carries(kl, engine, circuit, rns_out, proofs, k4) -> dict:
+    """Phase 12c: under BMT_CARRIES=scan, h(x) of one witness through
+    _h_pipeline and the decode of phase 6's rns step equal the flat run's
+    limbs and points; each with the flat run's K4 launches."""
+    import torch
+
+    from bellman_mpc_tpu_torch.curves.device import g1_device, g2_device
+    from bellman_mpc_tpu_torch.groth16.prover import _h_pipeline, synthesize_witness
+    from bellman_mpc_tpu_torch.ops.domain import domain_size_for
+
+    fr, host, dev = engine.fr, engine.fr_host, engine.device
+    prover = synthesize_witness(engine, circuit)
+    m, exp = domain_size_for(len(prover.a), host)
+    abc = [fr.encode(list(v) + [0] * (m - len(v)), device=dev) for v in (prover.a, prover.b, prover.c)]
+    g_a, g_b, g_c = rns_out
+
+    def decode():
+        return (g1_device.decode_points(tuple(x[..., 0] for x in g_a)),
+                g2_device.decode_points(tuple(x[..., 0] for x in g_b)),
+                g1_device.decode_points(tuple(x[..., 0] for x in g_c)))
+
+    out = {}
+    runs = {}
+    for carries in ("flat", "scan"):
+        with environ(BMT_CARRIES=carries):
+            h, c_h, out[f"h_{carries}_s"] = counted(kl, lambda: _h_pipeline(fr, host, exp)(*abc))
+            pts, c_d, out[f"decode_{carries}_s"] = counted(kl, decode)
+        assert c_h["mont_mul"] == 15 * exp + 10 and c_d["mont_mul"] == k4["decode"], (carries, c_h, c_d)
+        check_no_fold(c_h, f"{carries} h(x)")
+        check_no_fold(c_d, f"{carries} decode")
+        runs[carries] = (h, pts)
+    assert torch.equal(runs["scan"][0], runs["flat"][0]), "scan carries: h(x) limbs differ from flat's"
+    assert runs["scan"][1] == runs["flat"][1] == ([p.a for p in proofs], [p.b for p in proofs],
+                                                  [p.c for p in proofs]), "scan carries: decoded points differ"
+    log(f"scan carries: {out}")
+    return out
+
+
+def opt_ins_phase(kl, engine, params, constants, circuits, proofs, k4, rns_out) -> dict:
+    """Phase 12: the opt-ins of BatchProver (a) BMT_GLV=1, BMT_MERGE_G1=1
+    and both, (b) BMT_STACK_MSMS=1 with pippenger, (c) BMT_CARRIES=scan."""
+    from bellman_mpc_tpu_torch.groth16 import proof_to_bytes
+
+    want_bytes = [proof_to_bytes(p) for p in proofs]
+    out = {name: opt_in(kl, engine, params, constants, circuits, want_bytes, k4, name) for name in OPT_INS}
+    out["stacked_pippenger"] = stacked_pippenger(kl, engine, params, constants, circuits, want_bytes, k4)
+    out["scan_carries"] = scan_carries(kl, engine, circuits[0], rns_out, proofs, k4)
+    return out
+
+
 def int32_ops_per_s() -> float:
     """The card's peak rate of 32-bit integer instructions: SMs x 64 per
     clock x the maximum SM clock that nvidia-smi reports."""
@@ -1047,24 +1294,32 @@ def mont_mul_bound(int_rate: float, lanes: int):
     return bound(3 * fr.L * lanes * 4, mont_mul_ops(fr) * lanes, int_rate)
 
 
+def fold_bound(int_rate: float, name: str, lanes: int):
+    """A fold window's (bound_ms, bound_by) at `lanes`: the accumulator and
+    the gathered point read, the accumulator written and the sign read once
+    (int32 words; the 71 real RNS channels, not the 80-row padded tiles),
+    or its RNS multiplies' operations (K1 11, K2 33)."""
+    row = 71 * 4
+    tc, i32 = rns_mul_ops()
+    muls, rows = (11, 8) if name == "rns_fold_window" else (33, 16)
+    return bound((rows * row + 4) * lanes, muls * i32 * lanes, int_rate, muls * tc * lanes)
+
+
 def kernel_bounds(int_rate: float, k3_lanes: int, fold_lanes: dict, mont_lanes: int):
     """bound_ms and bound_by of each kernel at the shapes it was timed at:
     each input read once and each output written once (int32 words; the 71
     real RNS channels, not the 80-row padded tiles), and the RNS multiplies'
     (K1 11, K2 33) or the Fr Montgomery product's operations."""
-    row = 71 * 4
     tc, i32 = rns_mul_ops()
-    g1, g2 = fold_lanes["rns_fold_window"], fold_lanes["rns_fold_window_g2"]
     return {
         "mont_mul": mont_mul_bound(int_rate, mont_lanes),
-        "rns_mul_many": bound(3 * row * k3_lanes, i32 * k3_lanes, int_rate, tc * k3_lanes),
-        "rns_fold_window": bound((8 * row + 4) * g1, 11 * i32 * g1, int_rate, 11 * tc * g1),
-        "rns_fold_window_g2": bound((16 * row + 4) * g2, 33 * i32 * g2, int_rate, 33 * tc * g2),
+        "rns_mul_many": bound(3 * 71 * 4 * k3_lanes, i32 * k3_lanes, int_rate, tc * k3_lanes),
+        **{name: fold_bound(int_rate, name, fold_lanes[name]) for name in ("rns_fold_window", "rns_fold_window_g2")},
     }
 
 
-def windows(c: int) -> int:
-    return -(-NBITS // c) + 1
+def windows(c: int, nbits: int = NBITS) -> int:
+    return -(-nbits // c) + 1
 
 
 def time_steps(bp, args, n: int = 3):
@@ -1176,14 +1431,15 @@ def main() -> int:
 
     # phase 6: timings
     args = bp.encode_circuits(circuits)
-    out, step_counts, _ = counted(kl, lambda: bp.step(*args))
+    rns_out, step_counts, _ = counted(kl, lambda: bp.step(*args))
     assert step_counts["mont_mul"] == k4["step"] and step_counts["mont_mul_plain"] == 0, step_counts
-    decoded, decode_counts, decode_s = counted(kl, lambda: bp.decode(*out))
+    decoded, decode_counts, decode_s = counted(kl, lambda: bp.decode(*rns_out))
     assert decode_counts["mont_mul"] == k4["decode"] and decode_counts["mont_mul_plain"] == 0, decode_counts
     assert decoded == proofs
     log(f"step: K4 {step_counts['mont_mul']} launches; decode: K4 {decode_counts['mont_mul']}, {decode_s:.3f} s")
     steps = time_steps(bp, args)
     step_s = statistics.median(steps)
+    rns_aten_ops = step_ops(bp, args)["aten_ops"]
     fold_times = time_fold_windows(bp, rng)
     m = bp.m
     del bp, args
@@ -1288,6 +1544,15 @@ def main() -> int:
                      "domain_h": st["domain_h"]}
     print("strategies: " + json.dumps(strategy_line) + f" on {smi}", flush=True)
 
+    # phase 12: the opt-ins (GLV-2/GLS-4, merged G1, both; stacked MSMs; scan carries)
+    oi = opt_ins_phase(kl, engine, params, constants, circuits, proofs, k4, rns_out)
+    opt_in_line = {"rns": {"build_s": prover_build_s, "step_s": step_s, "steps_s": steps, "decode_s": decode_s,
+                           "peak_mem_gib_phases_4_8": peak_mem_gib, "k1_step": counts["rns_fold_window"],
+                           "k2_step": counts["rns_fold_window_g2"],
+                           "k4_step": step_counts["mont_mul"], "aten_ops_step": rns_aten_ops},
+                   **oi}
+    print("opt-ins: " + json.dumps(opt_in_line) + f" on {smi}", flush=True)
+
     # the kernels' line
     int_rate = int32_ops_per_s()
     k4_timed = checks["mont_mul"]["timed"]
@@ -1320,6 +1585,14 @@ def main() -> int:
             "ms": timed[name]["ms"], "plain_ms": timed[name]["plain_ms"],
             "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
         })
+        if name in ("rns_fold_window", "rns_fold_window_g2"):  # per opt-in, and at its widths
+            k = "k1" if name == "rns_fold_window" else "k2"
+            kernels[-1].update(
+                launches_step_rns=step_counts[name],
+                **{f"launches_step_{o}": oi[o][f"{k}_step"] for o in OPT_INS},
+                shapes=[{"lanes": w["lanes"], "ms": w["ms"], "plain_ms": w["plain_ms"],
+                         "bound_ms": fold_bound(int_rate, name, w["lanes"])[0],
+                         "bound_by": fold_bound(int_rate, name, w["lanes"])[1]} for w in checks[name]["wide"]])
         if name == "mont_mul":  # per part of the run, and at both timed shapes
             kernels[-1].update(
                 launches_step=step_counts["mont_mul"], launches_decode=decode_counts["mont_mul"],
@@ -1327,6 +1600,8 @@ def main() -> int:
                 launches_eq_batch=pa["k4"]["eq_batch"], launches_contribution_check=ck["k4_per_check"],
                 launches_mock_proof_L2=mk["k4"], launches_g1_intt=tr["g1_k4"], launches_g2_intt=tr["g2_k4"],
                 **{f"launches_step_{k}": v["k4_step"] for k, v in st["strategies"].items()},
+                **{f"launches_step_{o}": oi[o]["k4_step"] for o in OPT_INS},
+                launches_step_stacked_pippenger=oi["stacked_pippenger"]["k4_step"],
                 graph_floor_ms=checks["mont_mul"]["graph_floor_ms"],
                 shapes=[{"shape": [24, n], "ms": t["ms"], "eager_ms": t["eager_ms"], "plain_ms": t["plain_ms"],
                          "bound_ms": k4_bounds[n][0], "bound_by": k4_bounds[n][1]} for n, t in k4_timed.items()])
@@ -1343,6 +1618,8 @@ def main() -> int:
         "ceremony_check_s": ck["check_s"], "anddemo_ceremony_s": lc["lagrange_s"],
         **{f"{k}_step_s": v["step_s"] for k, v in st["strategies"].items()},
         "comb_setup_s": st["comb_setup_s"],
+        **{f"{o}_step_s": oi[o]["step_s"] for o in OPT_INS},
+        "stacked_pippenger_step_s": oi["stacked_pippenger"]["step_s"],
         "peak_mem_gib": peak_mem_gib,
         "int32_ops_per_s": int_rate, "total_s": total_s,
     }), flush=True)

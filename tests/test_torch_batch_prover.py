@@ -12,8 +12,9 @@ prove -> verify for MiMC rounds=8 (domain 32), held against the reference.
   setup -> prove -> verify, a sequential RangeDemo proof on parameters
   read from the port's serialized bytes, and the mock ceremony; it imports
   the ceremony, checkpoint, group-NTT and Gt-byte modules and the limb MSM,
-  comb and EvaluationDomain entry points, and builds a table-strategy
-  BatchProver.
+  comb and EvaluationDomain entry points, builds a table-strategy
+  BatchProver, and proves the rns batch again with a GLV + merged-G1
+  BatchProver (BMT_GLV=1, BMT_MERGE_G1=1), whose proofs must be the same.
 """
 
 import os
@@ -105,7 +106,7 @@ def test_serialized_bytes_match_reference(setup):
 
 
 _JAX_FREE = """
-import random, sys
+import os, random, sys
 sys.modules["jax"] = None
 from bellman_mpc_tpu_torch import groth16 as tg
 from bellman_mpc_tpu_torch.fields.mock import mock
@@ -130,6 +131,11 @@ proofs = bp.prove_batch([MiMCDemo(constants, a, b) for a, b in wit])
 pvk = tg.prepare_verifying_key(eng, params.vk)
 for (a, b), pr in zip(wit, proofs):
     tg.verify_proof(eng, pvk, pr, [mimc(host, a, b, constants)])
+os.environ.update(BMT_GLV="1", BMT_MERGE_G1="1")
+bp_opt = BatchProver(eng, params, MiMCDemo(constants, 0, 0), msm_strategy="rns")
+del os.environ["BMT_GLV"], os.environ["BMT_MERGE_G1"]
+assert bp_opt.glv and bp_opt.merge_g1 and bp_opt.table_info()[0][:2] == ("g1_merged", 224)
+assert bp_opt.prove_batch([MiMCDemo(constants, a, b) for a, b in wit]) == proofs
 with open(sys.argv[1], "rb") as fh:
     r_params = tg.params_from_bytes(fh.read())
 r_proof = tg.create_random_proof(

@@ -410,3 +410,83 @@ def test_batch_prover_strategies_match_rns(mimc8, strategy, signed, monkeypatch)
     assert bp.prove_batch(circuits) == want
     assert kernel_lib.plain_counts["mont_mul"] == 0 and kernel_lib.launch_counts["mont_mul"] > 0
     assert _no_fold()
+
+
+# ------------------------------------------------ the opt-ins (BMT_GLV, ...)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("lanes", [57344, 114688])
+def test_k1_at_merged_widths(dev, lanes):
+    """K1 at the merged G1 fold's widths (57,344 lanes; 114,688 with GLV),
+    over two chained windows, sentinels gathered under both signs."""
+    rng = random.Random(lanes + 5)
+    acc = want = tuple(_tile(rng, lanes, dev) for _ in range(3))
+    for _ in range(2):
+        q, sg = _k1_inputs(rng, lanes, dev)
+        sg[0] = sg[lanes - 1] = True  # sentinel lanes with the sign set
+        acc = fk.rns_fold_window(F, 12, acc, q, sg, Fraction(37), Fraction(fk.G1_CAP))
+        want = fk.fold_window_g1_plain(F, 12, want, q[0], q[1], sg.to(torch.int32), 37, fk.G1_CAP)
+        assert all(torch.equal(g, w) for g, w in zip(acc, want))
+
+
+@pytest.mark.cuda
+def test_k2_at_gls_width(dev):
+    """K2 at the GLS-4 G2 fold's width (32,768 lanes), two chained windows."""
+    lanes = 32768
+    rng = random.Random(lanes + 6)
+    acc = want = tuple(_fp2_tile(rng, lanes, dev) for _ in range(3))
+    for _ in range(2):
+        q, sg = _k2_inputs(rng, lanes, dev)
+        sg[0] = sg[lanes - 1] = True
+        acc = fk.rns_fold_window_g2(F, 12, acc, q, sg, Fraction(37), Fraction(fk.G2_CAP))
+        want = _k2_plain(want, q, sg)
+        assert all(torch.equal(g, w) for g, w in zip(acc, want))
+
+
+@pytest.mark.cuda
+def test_glv_decompositions_match_cpu(dev):
+    """The GLV-2 / GLS-4 device decompositions on the card (float64 matrix
+    products, the digit loops) equal the CPU's."""
+    from bellman_mpc_tpu_torch.ops import glv
+
+    rng = random.Random(19)
+    ks = [0, 1, R - 1, glv.LAMBDA, glv.LAMBDA + 1] + [rng.randrange(R) for _ in range(251)]
+    std = _limbs(fr, ks, "cpu").reshape(fr.L, 16, 16)
+    cpu = glv.decompose_glv2_device(std) + glv.decompose_gls4_device(std)
+    card = glv.decompose_glv2_device(std.to(dev)) + glv.decompose_gls4_device(std.to(dev))
+    assert all(torch.equal(c, g.cpu()) for c, g in zip(cpu, card))
+    assert torch.equal(glv.digits_to_bits_msb(card[1]).cpu(), glv.digits_to_bits_msb(cpu[1]))
+
+
+def _windows(c, nbits):
+    return -(-nbits // c) + 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("env,strategy", [
+    ({"BMT_GLV": "1"}, "rns"), ({"BMT_MERGE_G1": "1"}, "rns"),
+    ({"BMT_GLV": "1", "BMT_MERGE_G1": "1"}, "rns"),
+    ({"BMT_STACK_MSMS": "1"}, "ladder"), ({"BMT_STACK_MSMS": "1"}, "pippenger"),
+    ({"BMT_CARRIES": "scan"}, "rns"),
+], ids=["glv", "merged", "glv-merged", "stacked-ladder", "stacked-pippenger", "scan-carries"])
+def test_batch_prover_opt_ins_match_rns(mimc8, env, strategy, monkeypatch):
+    """Each opt-in's BatchProver on the card gives the rns strategy's
+    proofs, K1 and K2 once per window of its tables (none for the limb
+    strategies), and no plain multiply."""
+    from bellman_mpc_tpu_torch.models import MiMCDemo
+    from bellman_mpc_tpu_torch.ops.glv import GLS_NBITS, GLV_NBITS
+    from bellman_mpc_tpu_torch.parallel import BatchProver
+
+    eng, params, constants, circuits, want = mimc8
+    for var, val in env.items():
+        monkeypatch.setenv(var, val)
+    bp = BatchProver(eng, params, MiMCDemo(constants, 0, 0), msm_strategy=strategy, pippenger_c=4)
+    kernel_lib.reset_launch_counts()
+    assert bp.prove_batch(circuits) == want
+    assert kernel_lib.plain_counts["mont_mul"] == 0 and kernel_lib.launch_counts["mont_mul"] > 0
+    g1_bits, g2_bits = (GLV_NBITS, GLS_NBITS) if bp.glv else (255, 255)
+    tables = {name: c for name, _, c, _ in bp.table_info()}
+    k1 = sum(_windows(c, g1_bits) for name, c in tables.items() if name != "b2")
+    k2 = _windows(tables["b2"], g2_bits) if tables else 0
+    assert (kernel_lib.launch_counts["rns_fold_window"], kernel_lib.launch_counts["rns_fold_window_g2"]) == (k1, k2)

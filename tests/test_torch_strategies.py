@@ -5,8 +5,9 @@ BMT_TABLE_SIGNED=0), pippenger and flatpip (pippenger_c=4).  Each batch
 equals the reference's `create_random_proof` of the same witnesses, and its
 step and decode make the limb multiplies (LimbField.mul, the limb
 Montgomery kernel on the card) that chip_smoke.k4_counts derives.  "auto"
-resolves to ladder on a CPU engine; the reference's opt-ins that the port
-does not have raise."""
+resolves to ladder on a CPU engine; `mesh=` (multi-GPU, not ported) raises
+NotImplementedError, and BMT_STACK_MSMS=1 with rns, table or flatpip (which
+the reference's stacked path cannot run) raises ValueError."""
 
 import random
 from types import SimpleNamespace
@@ -57,14 +58,14 @@ def _prover(crs, **kw):
 def test_auto_and_unported_opt_ins(crs, monkeypatch):
     bp = _prover(crs)
     assert bp.msm_strategy == "ladder" and bp.table_info() == []
-    for var, val in (("BMT_GLV", "1"), ("BMT_MERGE_G1", "1"), ("BMT_STACK_MSMS", "1"),
-                     ("BMT_CARRIES", "scan")):
-        monkeypatch.setenv(var, val)
-        with pytest.raises(NotImplementedError, match="A4b"):
-            _prover(crs, msm_strategy="rns")
-        monkeypatch.delenv(var)
-    with pytest.raises(NotImplementedError, match="A4b"):
+    assert not (bp.glv or bp.merge_g1 or bp.stack_msms)
+    with pytest.raises(NotImplementedError, match="A5"):
         _prover(crs, msm_strategy="table", mesh=object())
+    monkeypatch.setenv("BMT_STACK_MSMS", "1")
+    for strategy in ("rns", "table", "flatpip"):
+        with pytest.raises(ValueError, match="BMT_STACK_MSMS"):
+            _prover(crs, msm_strategy=strategy)
+    monkeypatch.delenv("BMT_STACK_MSMS")
     with pytest.raises(ValueError):
         _prover(crs, msm_strategy="glv")
 
