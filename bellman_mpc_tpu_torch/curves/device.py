@@ -67,6 +67,9 @@ class DevFp:
     def is_zero(self, a):
         return self.f.is_zero(a)
 
+    def eq(self, a, b):
+        return self.f.eq(a, b)
+
     def batch_shape(self, a):
         return tuple(a.shape[1:])
 
@@ -166,6 +169,9 @@ class DevFp2:
 
     def is_zero(self, a):
         return torch.logical_and(self.f.is_zero(a[:, 0]), self.f.is_zero(a[:, 1]))
+
+    def eq(self, a, b):
+        return torch.logical_and(self.f.eq(a[:, 0], b[:, 0]), self.f.eq(a[:, 1], b[:, 1]))
 
     def batch_shape(self, a):
         return tuple(a.shape[2:])

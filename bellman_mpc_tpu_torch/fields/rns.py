@@ -99,6 +99,9 @@ class RnsVal:
         assert 0 <= k < (1 << 12)
         return RnsVal(f, f.reduce(self.res * k), self.a * k)
 
+    def double(self) -> "RnsVal":
+        return self + self
+
 
 class RnsField:
     """RNS context for GF(p): channel layout [B (k) | B' (k) | m_r]."""
@@ -255,6 +258,21 @@ class RnsField:
 
     def mul(self, a: RnsVal, b: RnsVal) -> RnsVal:
         return self.mul_many([(a, b)])[0]
+
+    def mul_const(self, a: RnsVal, c: int) -> RnsVal:
+        """Multiply by a host constant (weight M^{-1} like any RNS mul —
+        pass c pre-multiplied by M mod p to preserve M-residue form)."""
+        cv = self.encode_raw(c % self.p, like=a.res)
+        return self.mul(a, RnsVal(self, cv, Fraction(1)))
+
+    # ------------------------------------------------------- select / tests
+    def select(self, cond: torch.Tensor, a: RnsVal, b: RnsVal) -> RnsVal:
+        return RnsVal(self, torch.where(cond, a.res, b.res), max(a.a, b.a))
+
+    def is_zero_exact(self, a: RnsVal) -> torch.Tensor:
+        """True iff the represented INTEGER is exactly 0 (value < M makes
+        all-B-channels-zero equivalent to zero)."""
+        return torch.all(a.res[: self.k] == 0, dim=0)
 
     # --------------------------------------------------------- encode/decode
     def encode_raw(self, v: int, like: torch.Tensor = None, device="cpu") -> torch.Tensor:

@@ -50,6 +50,21 @@ def synthesize_keypair(engine, circuit: Circuit) -> KeypairAssembly:
     return assembly
 
 
+def lagrange_coeffs_at_tau(engine, m: int, tau: int) -> List[int]:
+    """L_i(tau) for the size-m radix-2 domain, via an iFFT of [tau^i] on
+    the engine's device.
+
+    Mirrors generator.rs:352-366 (powers of tau) + :400-402 (ifft).
+    """
+    p = engine.fr_host.p
+    powers = [1] * m
+    for i in range(1, m):
+        powers[i] = powers[i - 1] * tau % p
+    d = EvaluationDomain.from_coeffs(engine.fr, engine.fr_host, powers, engine.device)
+    d.ifft()
+    return d.into_coeffs()
+
+
 def _eval_at_tau(col: List[Tuple[int, int]], lag: List[int], p: int) -> int:
     """Evaluate one sparse QAP column at tau (generator.rs:485-499)."""
     acc = 0
@@ -91,9 +106,7 @@ def generate_parameters(
     h = G1.batch_mul(g1, [powers[i] * coeff % p for i in range(m - 1)])
 
     # Lagrange coefficients via device iFFT (generator.rs:400-402).
-    d = EvaluationDomain.from_coeffs(engine.fr, fr, powers, engine.device)
-    d.ifft()
-    lag = d.into_coeffs()
+    lag = lagrange_coeffs_at_tau(engine, m, tau)
 
     def eval_queries(at, bt, ct, inv: int):
         """Per-variable QAP evaluation (generator.rs:418-536)."""

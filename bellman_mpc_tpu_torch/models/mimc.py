@@ -1,15 +1,26 @@
 """MiMC demo circuit (LongsightF322p3) — the canonical benchmark circuit.
 
-Host copy of bellman_mpc_tpu/models/mimc.py (the native round function,
-the deterministic round constants and the `MiMCDemo` circuit), kept free of
-any jax import so the PyTorch port can synthesize witnesses on its own.
+Copy of bellman_mpc_tpu/models/mimc.py on the port's engines: the native
+round function, the deterministic round constants, the `MiMCDemo` circuit,
+and the helpers of bellman/src/mimc.rs: `neo_create_parameters`
+(:24-46) and the timed prove/verify loop (:51-131), `timed_prove_verify`.
+The port has no engine singleton, so both helpers take the engine; it runs
+where its `device` says.
 """
 
 from __future__ import annotations
 
 import random
+import time
 from typing import List, Optional
 
+from ..groth16 import (
+    create_random_proof,
+    generate_random_parameters,
+    prepare_verifying_key,
+    verify_proof,
+)
+from ..groth16.engine import Engine
 from ..r1cs.core import AssignmentMissing, Circuit, ConstraintSystem
 
 MIMC_ROUNDS = 322
@@ -91,3 +102,44 @@ class MiMCDemo(Circuit):
                 xr, xr_value = xl, xl_value
                 xl, xl_value = new_xl, new_xl_value
 
+
+def neo_create_parameters(engine: Engine, seed: int = 42):
+    """FFI-style parameter factory (mimc.rs:24-46)."""
+    constants = mimc_constants(engine.fr_host, seed)
+    return generate_random_parameters(engine, MiMCDemo(constants)), constants
+
+
+def timed_prove_verify(engine: Engine, samples: int = 50, seed: int = 42):
+    """The reference's 50-sample timed prove/verify loop (mimc.rs:51-131).
+
+    Returns (avg_proving_s, avg_verifying_s).  Queued device work ends
+    inside each timed part: proof creation and verification read their
+    results back to host ints.
+    """
+    from ..groth16.serialize import proof_from_bytes, proof_to_bytes
+
+    constants = mimc_constants(engine.fr_host, seed)
+    params = generate_random_parameters(engine, MiMCDemo(constants))
+    pvk = prepare_verifying_key(engine, params.vk)
+
+    rng = random.Random(seed + 1)
+    total_proving = 0.0
+    total_verifying = 0.0
+    for _ in range(samples):
+        xl = rng.randrange(engine.fr_host.p)
+        xr = rng.randrange(engine.fr_host.p)
+        image = mimc(engine.fr_host, xl, xr, constants)
+
+        start = time.perf_counter()
+        proof = create_random_proof(engine, MiMCDemo(constants, xl, xr), params)
+        if engine.name == "bls12_381":
+            raw = proof_to_bytes(proof)
+        total_proving += time.perf_counter() - start
+
+        start = time.perf_counter()
+        if engine.name == "bls12_381":
+            proof = proof_from_bytes(raw)
+        verify_proof(engine, pvk, proof, [image])
+        total_verifying += time.perf_counter() - start
+
+    return total_proving / samples, total_verifying / samples

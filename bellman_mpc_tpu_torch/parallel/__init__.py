@@ -1,3 +1,5 @@
 from .batch_prover import BatchProver
+from .worker import Waiter, Worker, log2_floor
 
-__all__ = ["BatchProver"]
+# make_mesh (parallel/mesh.py) is still to be ported (ROADMAP A5)
+__all__ = ["BatchProver", "Waiter", "Worker", "log2_floor"]

@@ -525,3 +525,8 @@ class BatchProver:
     def prove_batch(self, circuits: Sequence[Circuit]) -> List[Proof]:
         """Host synthesis per circuit + one device step + decode."""
         return self.decode(*self.step(*self.encode_circuits(circuits)))
+
+    def run_step(self, *device_args):
+        """The raw device step, `step` under the reference's name (for
+        benchmarking device-only throughput)."""
+        return self.step(*device_args)

@@ -5,17 +5,26 @@ from .core import (
     AssignmentMissing,
     Circuit,
     ConstraintSystem,
+    DivisionByZero,
     InvalidProof,
     InvalidVerifyingKey,
+    IoError,
     LinearCombination,
+    Namespace,
+    PolynomialDegreeTooLarge,
     SynthesisError,
     UnconstrainedVariable,
     UnexpectedIdentity,
+    Unsatisfiable,
     Variable,
+    VerificationError,
 )
+from .test_cs import TestConstraintSystem
 
 __all__ = [
     "AUX", "INPUT", "ONE", "AssignmentMissing", "Circuit", "ConstraintSystem",
-    "InvalidProof", "InvalidVerifyingKey", "LinearCombination",
-    "SynthesisError", "UnconstrainedVariable", "UnexpectedIdentity", "Variable",
+    "DivisionByZero", "InvalidProof", "InvalidVerifyingKey", "IoError",
+    "LinearCombination", "Namespace", "PolynomialDegreeTooLarge",
+    "SynthesisError", "UnconstrainedVariable", "UnexpectedIdentity",
+    "Unsatisfiable", "Variable", "VerificationError", "TestConstraintSystem",
 ]

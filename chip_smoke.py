@@ -21,33 +21,32 @@ Phases (each raises on failure; nothing is caught):
      (24, 16384) and (36, 16), and on NTT-stage views and broadcast
      constants (check_mont_mul); time K3 and K1 at 16384 lanes, K2 at 8192
      lanes and K4 at (24, 8192) and (24, 16384) beside their plain versions;
-  4. setup: generate_random_parameters for MiMC-322 (constants seed 42),
-     then BatchProver(msm_strategy="rns") with its padded RNS tables;
+  4. setup: ffi.test_create_parameters(), the MiMC-322 CRS (constants seed
+     42) on its default engine, Bls12Engine() on the card, then
+     BatchProver(msm_strategy="rns") with its padded RNS tables;
   5. prove_batch on B=16 random witnesses, launch counts checked (K1 132
      times, K2 33 times, K4 once for every limb multiply: k4_counts derives
      162 per step and 1847 per decode; the plain multiply never on a CUDA
      tensor); the 16 proofs verified on the card by one BatchVerifier.verify,
      proof 0 by verify_proof, a batch with one wrong public input rejected
      (each with K4's count from pairing_k4_counts, no plain multiply, no K1
-     or K2), and the 16 again by the host oracle's loop (a CPU engine),
-     timed;
+     or K2), and the first 4 again by the host oracle's loop (a CPU
+     engine), timed;
   6. timings: one step and one decode counted apart, table build, median
      step of 3, proofs/s, decode seconds, and one fold window's kernel time
      beside its plain version's at the main path's shapes (gathered from the
      real tables);
   7. the sequential create_random_proof of witness 0 (K4 3236 times, no
-     fold kernel) equals batch proof 0 in its 192 serialized bytes and
-     verifies on the card;
+     fold kernel) equals batch proof 0 in its 192 serialized bytes (which
+     phase 5 verified on the card);
   8. RangeDemo (the chip gate's setup and witnesses, n = 4, B = 16):
      setup, BatchProver(rns), 16/16 verified by one BatchVerifier on the
      card, proof 0 equal to the sequential proof, launch counts checked;
-  9. pairings at scale: pairing_batch on 8 pairs (one with the identity)
-     equal to the host oracle's pairings; pairing_eq_batch on 30
-     equations of points made by the engine's device ladders, every third
-     false, giving the known answers (the host encode timed apart; phase
-     10c runs it at 12,288 lanes);
-     pairing_product_is_one timed at buckets 8 and 32; K4 counts checked
-     as in phase 5;
+  9. pairings at scale: pairing_eq_batch on 30 equations of points made
+     by the engine's device ladders, every third false, giving the known
+     answers (the host encode timed apart; phase 10c runs it at 12,288
+     lanes); pairing_product_is_one timed at bucket 8; K4 counts checked
+     as in phase 5 (pairing_batch runs in phase 13);
  10. the trusted-setup ceremony (groth16/mpc.py): (a) setup, proofs and
      verification on DummyEngine on the card for the mock tests' XorDemo,
      AndDemo and AddDemo, equal to DummyEngine("cpu")'s, K4 at L = 2 only;
@@ -58,7 +57,7 @@ Phases (each raises on failure; nothing is caught):
      ladder per group) checked by verify_common_paramter (10,243
      equations, one pairing_eq_batch of 12,288 lanes): accepted, and
      rejected with two tau powers swapped; (d) the Lagrange transform
-     (engine.g1/g2.intt) of its first 512 tau points equal to L_j(tau) G;
+     (engine.g1/g2.intt) of its first 32 tau points equal to L_j(tau) G;
      prints a `ceremony:` line with the times and K4 counts;
  11. the limb MSM strategies and the rest of the slice (same MiMC-322 CRS):
      (a) BatchProver with ladder, table (signed, pick_table_c's width),
@@ -80,11 +79,26 @@ Phases (each raises on failure; nothing is caught):
      with pippenger (c = 8), the same checks; (c) under BMT_CARRIES=scan,
      h(x) of witness 0 and the decode of phase 6's step equal the flat
      run's limbs and points; prints an `opt-ins:` line with each one's
-     build, median step of 3, decode, peak memory, launches and aten
+     build, one timed step, decode, peak memory, launches and aten
      operator calls per step (and its GLV digit path's) beside rns's.
      Phase 3 also holds K1 at 57,344 and 114,688 lanes and K2 at 32,768
      lanes (the opt-ins' widths) against their plain versions and times
-     them.
+     them;
+ 13. the host surface: (a) ffi.test_bellman() and ffi.process() (ten times
+     5,000,000), timed; (b) neo_create_parameters refused on DummyEngine at
+     MiMC-322 (PolynomialDegreeTooLarge: the mock field's domains stop at
+     2^9, as in the reference), then timed_prove_verify(DummyEngine on the
+     card, samples=3) with the constants cut to 100 rounds: two positive
+     averages, K4 launched at L = 2, no plain multiply; (c) each ported
+     bench of bellman_mpc_tpu_torch.benches at quick on the card, its JSON
+     lines printed, K4 launched (exactly 1 + 60 for ntt and 1 + one
+     pairing_batch's for pairing), no plain multiply, K1 and K2 only under
+     batch_verify (its items come from an rns BatchProver); (d) one SHA-256
+     compression of 512 allocated bits (a 55-byte message padded to one
+     block) through the port's TestConstraintSystem: satisfied, 25,840
+     constraints beyond the 512 inputs, the digest equal to hashlib's; one
+     BLAKE2s of 32 bytes equal to hashlib.blake2s(person=b"12345678");
+     prints a `host surface:` line with the times and K4 counts.
 
 Prints the kernels' JSON line (every kernel with its launches on the main
 path, error, times, bound and library yardstick), the card's name and power
@@ -558,11 +572,14 @@ def batch_verify(engine, vk, proofs, inputs, seed: int) -> None:
     bv.verify(engine, vk, random.Random(seed))
 
 
+HOST_VERIFIED = 4  # proofs the host oracle checks again (cut from 16 as phase 13 was added)
+
+
 def verify_on_card(kl, engine, params, pvk, proofs, inputs) -> dict:
     """Phase 5's verification: the batch of proofs by one BatchVerifier on
     the card, proof 0 by verify_proof, a batch with one wrong public input
-    rejected (each counted), then the same proofs by the host oracle's
-    loop (a CPU engine), timed."""
+    rejected (each counted), then the first HOST_VERIFIED proofs by the
+    host oracle's loop (a CPU engine), timed."""
     from bellman_mpc_tpu_torch.groth16 import Bls12Engine, verify_proof
     from bellman_mpc_tpu_torch.r1cs import InvalidProof
 
@@ -580,7 +597,7 @@ def verify_on_card(kl, engine, params, pvk, proofs, inputs) -> dict:
     check_pairing_counts(c, k4, "BatchVerifier.verify (wrong input)")
     host = Bls12Engine("cpu")
     t0 = time.perf_counter()
-    for proof, inp in zip(proofs, inputs):
+    for proof, inp in zip(proofs[:HOST_VERIFIED], inputs):
         verify_proof(host, pvk, proof, inp)
     host_s = time.perf_counter() - t0
     return {"batch_verify_s": batch_s, "verify_single_s": single_s, "batch_reject_s": bad_s,
@@ -588,16 +605,16 @@ def verify_on_card(kl, engine, params, pvk, proofs, inputs) -> dict:
 
 
 def pairings_at_scale(kl, engine, device, n_eq: int = 30, rng=None) -> dict:
-    """Phase 9: pairing_batch on 8 pairs (the 4th G1 point the identity)
-    equal to the host oracle; pairing_eq_batch on n_eq equations
-    e(a G1, b G2) == e(c G1, G2) with c = ab, or ab + 1 in every third
-    (false) one, the points made by the engine's device ladders, against
-    the known truth, with the host encode timed apart; pairing_product_is_one
-    on 4 and 18 terms of true equations (buckets 8 and 32).  Every call
-    counted (pairing_k4_counts)."""
+    """Phase 9: pairing_eq_batch on n_eq equations e(a G1, b G2) ==
+    e(c G1, G2) with c = ab, or ab + 1 in every third (false) one, the
+    points made by the engine's device ladders, against the known truth,
+    with the host encode timed apart; pairing_product_is_one on 4 terms of
+    true equations (bucket 8).  Every call counted (pairing_k4_counts).
+    pairing_batch runs in phase 13's bench_pairing (8 pairs), held there
+    against the host oracle; tests/test_torch_cuda.py holds it with an
+    identity lane."""
     import torch
 
-    from bellman_mpc_tpu_torch.curves import pairing_host as ph
     from bellman_mpc_tpu_torch.curves.host import G1, G2
     from bellman_mpc_tpu_torch.fields.bls12_381 import R
     from bellman_mpc_tpu_torch.ops import pairing as dp
@@ -606,15 +623,6 @@ def pairings_at_scale(kl, engine, device, n_eq: int = 30, rng=None) -> dict:
     k4 = pairing_k4_counts()
     out = {}
     torch.cuda.reset_peak_memory_stats()
-    g1s = engine.g1.batch_mul(G1.generator, [rng.randrange(1, R) for _ in range(8)])
-    g2s = engine.g2.batch_mul(G2.generator, [rng.randrange(1, R) for _ in range(8)])
-    g1s[3] = None
-    vals, c, out["pairing_batch_8_s"] = counted(kl, lambda: dp.pairing_batch(g1s, g2s, device))
-    check_pairing_counts(c, k4["pairing_batch"], "pairing_batch")
-    t0 = time.perf_counter()
-    assert vals == [ph.pairing(p, q) for p, q in zip(g1s, g2s)], "pairing_batch != host oracle"
-    out["host_pairing_8_s"] = time.perf_counter() - t0
-
     sa = [rng.randrange(1, R) for _ in range(n_eq)]
     sb = [rng.randrange(1, R) for _ in range(n_eq)]
     truth = [i % 3 != 2 for i in range(n_eq)]
@@ -636,7 +644,7 @@ def pairings_at_scale(kl, engine, device, n_eq: int = 30, rng=None) -> dict:
     assert eqs.tolist() == truth, "pairing_eq_batch disagrees with the known answers"
     out.update(n_eq=n_eq, equations_per_s=n_eq / out["pairing_eq_s"])
 
-    for n_terms in (4, 18):  # buckets 8 and 32: true equations, split into terms
+    for n_terms in (4,):  # bucket 8: true equations, split into terms
         idx = range(0, 3 * (n_terms // 2), 3)  # every third equation is false
         g1_terms = [a1[i] for i in idx] + [G1.neg(a2[i]) for i in idx]
         g2_terms = [b1[i] for i in idx] + [G2.generator] * len(idx)
@@ -650,10 +658,11 @@ def pairings_at_scale(kl, engine, device, n_eq: int = 30, rng=None) -> dict:
 
 
 CEREMONY_POWERS = 2048  # the 2m tau powers of MiMC-322's Lagrange ceremony (m = 1024)
-# the Lagrange transform's size: cut from MiMC-322's m = 1024 to 512 to keep
-# the script's time as phase 12 was added (its ladders are launch-bound:
-# one fewer stage per group)
-LAGRANGE_M = 512
+# the Lagrange transform's size: cut from MiMC-322's m = 1024 to 512 as phase
+# 12 was added, then to 32 as phase 13 was (its ladders are launch-bound:
+# one stage per doubling of m; still above the 4 points that route to the
+# host butterflies)
+LAGRANGE_M = 32
 # the mock Groth16 tests' trapdoor and blinding (tests/test_groth16_mock.py, tests/mod.rs:302-307)
 MOCK_TRAPDOOR = (48577, 22580, 53332, 5481, 3673)
 MOCK_BLINDING = (27134, 17146)
@@ -1108,8 +1117,8 @@ def opt_in(kl, engine, params, constants, circuits, want_bytes, k4, name: str) -
     """Phase 12a, one opt-in: BatchProver(rns) built under its variables,
     one counted step and decode, the proofs against the rns proofs' bytes,
     K1 / K2 launches against derived_folds (and MIMC322_FOLDS at MiMC-322's
-    widths), K4 as k4_counts, no plain multiply; then the median step of 3
-    and one step's aten operator calls."""
+    widths), K4 as k4_counts, no plain multiply; then one timed step and
+    one step's aten operator calls."""
     import torch
 
     from bellman_mpc_tpu_torch.groth16 import proof_to_bytes
@@ -1143,7 +1152,7 @@ def opt_in(kl, engine, params, constants, circuits, want_bytes, k4, name: str) -
     assert c_dec["mont_mul"] == k4["decode"], c_dec
     check_no_fold(c_dec, f"{name} decode")
     assert [proof_to_bytes(p) for p in proofs] == want_bytes, f"{name}: proofs differ from rns's"
-    steps = time_steps(bp, args)
+    steps = time_steps(bp, args, 1)
     ops = step_ops(bp, args)
     out = {"build_s": build_s, "step_s": statistics.median(steps), "steps_s": steps, "decode_s": decode_s,
            "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30, "k1_step": folds[0], "k2_step": folds[1],
@@ -1237,6 +1246,155 @@ def opt_ins_phase(kl, engine, params, constants, circuits, proofs, k4, rns_out) 
     out = {name: opt_in(kl, engine, params, constants, circuits, want_bytes, k4, name) for name in OPT_INS}
     out["stacked_pippenger"] = stacked_pippenger(kl, engine, params, constants, circuits, want_bytes, k4)
     out["scan_carries"] = scan_carries(kl, engine, circuits[0], rns_out, proofs, k4)
+    return out
+
+
+BENCH_KEYS = {"bench", "value", "unit"}  # every line of the reference's _emit
+# the mock field's two-adicity stops its domains at 2^9, below MiMC-322's
+# 2^10 (646 constraints), in the reference as in the port: the timed loop
+# runs on the mock engine at the reference's small-field size
+# (tests/test_models.py), 202 constraints in a domain of 256
+MOCK_MIMC_ROUNDS = 100
+SHA256_BLOCK_CONSTRAINTS = 25840  # one compression (sha256.rs test_full_block)
+
+
+@contextlib.contextmanager
+def mimc_rounds(rounds: int):
+    """Cut the round constants that models/mimc.py's parameter and timing
+    helpers draw (they call mimc_constants(field, seed)) to `rounds` for the
+    block."""
+    import importlib
+
+    mod = importlib.import_module("bellman_mpc_tpu_torch.models.mimc")
+    orig = mod.mimc_constants
+    mod.mimc_constants = lambda field, seed=42: orig(field, seed, rounds)
+    try:
+        yield
+    finally:
+        mod.mimc_constants = orig
+
+
+@contextlib.contextmanager
+def recorded(module, name: str, calls: list):
+    """For the block, module.name records (args, result) of each call in
+    `calls` (the benches import their entry points when they run)."""
+    fn = getattr(module, name)
+
+    def spy(*args):
+        out = fn(*args)
+        calls.append((args, out))
+        return out
+
+    setattr(module, name, spy)
+    try:
+        yield
+    finally:
+        setattr(module, name, fn)
+
+
+def no_plain(counts: dict, what: str) -> None:
+    assert counts["mont_mul"] > 0 and counts["mont_mul_plain"] == 0, (what, counts)
+
+
+def gadget_hashes() -> dict:
+    """Phase 13d: one SHA-256 compression of 512 allocated bits (a 55-byte
+    message, padded to one block) and one BLAKE2s of 32 bytes through the
+    port's TestConstraintSystem, against hashlib."""
+    import hashlib
+
+    from bellman_mpc_tpu_torch.fields.bls12_381 import fr_host
+    from bellman_mpc_tpu_torch.gadgets import AllocatedBit, Boolean, blake2s, bytes_to_bits, bytes_to_bits_le
+    from bellman_mpc_tpu_torch.gadgets.sha256 import get_sha256_iv, sha256_compression_function
+    from bellman_mpc_tpu_torch.r1cs import TestConstraintSystem
+
+    rng = random.Random(13)
+    msg = bytes(rng.randrange(256) for _ in range(55))
+    block = msg + b"\x80" + (8 * len(msg)).to_bytes(8, "big")
+    t0 = time.perf_counter()
+    cs = TestConstraintSystem(fr_host)
+    bits = [Boolean.from_bit(AllocatedBit.alloc(cs.namespace(f"input bit {i}"), b))
+            for i, b in enumerate(bytes_to_bits(block))]
+    words = sha256_compression_function(cs.namespace("sha256"), bits, get_sha256_iv())
+    got = [b.get_value() for w in words for b in w.into_bits_be()]
+    assert cs.is_satisfied(), cs.which_is_unsatisfied()
+    assert len(bits) == 512 and cs.num_constraints() - 512 == SHA256_BLOCK_CONSTRAINTS, cs.num_constraints()
+    assert got == bytes_to_bits(hashlib.sha256(msg).digest()), "SHA-256 gadget differs from hashlib"
+    sha_s = time.perf_counter() - t0
+    data = bytes(rng.randrange(256) for _ in range(32))
+    t0 = time.perf_counter()
+    cs2 = TestConstraintSystem(fr_host)
+    bits2 = [Boolean.from_bit(AllocatedBit.alloc(cs2.namespace(f"input bit {i}"), b))
+             for i, b in enumerate(bytes_to_bits_le(data))]
+    got2 = [b.get_value() for b in blake2s(cs2, bits2, b"12345678")]
+    assert cs2.is_satisfied(), cs2.which_is_unsatisfied()
+    assert got2 == bytes_to_bits_le(hashlib.blake2s(data, digest_size=32, person=b"12345678").digest())
+    return {"sha256_block_s": sha_s, "sha256_constraints": cs.num_constraints(),
+            "blake2s_32_s": time.perf_counter() - t0, "blake2s_constraints": cs2.num_constraints()}
+
+
+def host_surface_phase(kl, device) -> dict:
+    """Phase 13: (a) ffi.test_bellman and ffi.process; (b) timed_prove_verify
+    on DummyEngine on the card (K4 at L = 2), after the MiMC-322 circuit is
+    refused by the mock field as by the reference; (c) each ported bench at
+    quick on the card, its JSON line printed, K4 launched, no plain
+    multiply; (d) gadget_hashes."""
+    import io
+
+    from bellman_mpc_tpu_torch import benches, ffi
+    from bellman_mpc_tpu_torch.curves import pairing_host as ph
+    from bellman_mpc_tpu_torch.groth16 import DummyEngine
+    from bellman_mpc_tpu_torch.ops import pairing as dp
+    from bellman_mpc_tpu_torch.models.mimc import neo_create_parameters, timed_prove_verify
+    from bellman_mpc_tpu_torch.r1cs import PolynomialDegreeTooLarge
+
+    out = {}
+    t_phase = time.perf_counter()
+    assert ffi.test_bellman() is None
+    t0 = time.perf_counter()
+    assert ffi.process() == [5_000_000] * 10
+    out["process_s"] = time.perf_counter() - t0
+
+    dummy = DummyEngine(device)
+    assert raises(PolynomialDegreeTooLarge, lambda: neo_create_parameters(dummy))
+    with mimc_rounds(MOCK_MIMC_ROUNDS):
+        (prove_avg, verify_avg), c, s = counted(kl, lambda: timed_prove_verify(dummy, samples=3))
+    assert prove_avg > 0 and verify_avg > 0, (prove_avg, verify_avg)
+    no_plain(c, "timed_prove_verify")
+    check_no_fold(c, "timed_prove_verify")
+    out["timed_prove_verify"] = {"rounds": MOCK_MIMC_ROUNDS, "samples": 3, "avg_prove_s": prove_avg,
+                                 "avg_verify_s": verify_avg, "s": s, "k4": c["mont_mul"]}
+
+    # K4 per bench at quick: six forward NTTs of 2^10 (one multiply per
+    # stage), and one pairing_batch (pairing_k4_counts)
+    k4_exact = {"ntt": 6 * 10, "pairing": pairing_k4_counts()["pairing_batch"]}
+    out["benches"] = {}
+    pairings = []  # bench_pairing's pairs and values, held against the host oracle below
+    for name in benches.DEFAULT_BENCHES:  # the four ported ones
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf), recorded(dp, "pairing_batch", pairings):
+            _, c, s = counted(kl, lambda: getattr(benches, f"bench_{name}")(True, device))
+        lines = [json.loads(x) for x in buf.getvalue().splitlines()]
+        for line in lines:
+            print(json.dumps(line), flush=True)
+            assert BENCH_KEYS <= set(line) and line["value"] > 0, line
+        assert len(lines) == (2 if name == "batch_verify" else 1), lines
+        no_plain(c, f"bench_{name}")
+        if name in k4_exact:  # one multiply in the bench's warm-up, then the bench's own
+            assert c["mont_mul"] == 1 + k4_exact[name], (name, c, k4_exact[name])
+        if name == "batch_verify":  # its items come from one rns BatchProver step
+            assert c["rns_fold_window"] > 0 and c["rns_fold_window_g2"] > 0, c
+        else:
+            check_no_fold(c, f"bench_{name}")
+        out["benches"][name] = {"s": s, "lines": lines, "k4": c["mont_mul"],
+                                "k1": c["rns_fold_window"], "k2": c["rns_fold_window_g2"]}
+    (g1s, g2s, _), vals = pairings[0]
+    assert len(pairings) == 1 and len(vals) == 8
+    t0 = time.perf_counter()
+    assert vals == [ph.pairing(p, q) for p, q in zip(g1s, g2s)], "pairing_batch != host oracle"
+    out["host_pairing_8_s"] = time.perf_counter() - t0
+    out["pairing_batch_8_s"] = out["benches"]["pairing"]["lines"][0]["total_s"]
+    out["gadgets"] = gadget_hashes()
+    out["s"] = time.perf_counter() - t_phase
     return out
 
 
@@ -1382,6 +1540,7 @@ def main() -> int:
         return 0
 
     # phase 4: setup
+    from bellman_mpc_tpu_torch import ffi
     from bellman_mpc_tpu_torch.groth16 import (
         Bls12Engine,
         create_random_proof,
@@ -1398,7 +1557,7 @@ def main() -> int:
     host = engine.fr_host
     constants = mimc_constants(host, seed=42)
     t0 = time.perf_counter()
-    params = generate_random_parameters(engine, MiMCDemo(constants))
+    params = ffi.test_create_parameters()  # MiMC-322 from seed 42, on Bls12Engine() (the card)
     setup_s = time.perf_counter() - t0
     log(f"setup (MiMC-{len(constants)}): {setup_s:.3f} s")
     t0 = time.perf_counter()
@@ -1427,7 +1586,7 @@ def main() -> int:
     ver = verify_on_card(kl, engine, params, pvk, proofs, inputs)
     print(f"verified {len(proofs)}/{B_PROOFS} proofs on the card: one BatchVerifier "
           f"{ver['batch_verify_s']:.3f} s, proof 0 alone {ver['verify_single_s']:.3f} s, wrong input "
-          f"rejected; host oracle {ver['host_verify_s']:.3f} s", flush=True)
+          f"rejected; host oracle on {HOST_VERIFIED} {ver['host_verify_s']:.3f} s", flush=True)
 
     # phase 6: timings
     args = bp.encode_circuits(circuits)
@@ -1453,10 +1612,8 @@ def main() -> int:
     assert counts_seq["rns_fold_window"] == counts_seq["rns_fold_window_g2"] == 0, counts_seq
     assert seq == proofs[0], "the sequential proof differs from batch proof 0"
     assert proof_to_bytes(seq) == proof_to_bytes(proofs[0]) and len(proof_to_bytes(seq)) == 192
-    _, c, seq_verify_s = counted(kl, lambda: verify_proof(engine, pvk, seq, inputs[0]))
-    check_pairing_counts(c, ver["k4_per_verify"], "verify_proof (sequential proof)")
-    print(f"sequential proof == batch proof 0 (192 bytes), verified on the card ({seq_verify_s:.3f} s)",
-          flush=True)
+    # the same 192 bytes as batch proof 0, which verify_proof checked on the card in phase 5
+    print("sequential proof == batch proof 0 (192 bytes)", flush=True)
 
     # phase 8: RangeDemo, the chip gate's second shape
     def range_circ(d):
@@ -1502,12 +1659,11 @@ def main() -> int:
     log(f"pairings: {pa}")
     verify_line = {
         "verify_single_s": ver["verify_single_s"], "batch_verify_16_s": ver["batch_verify_s"],
-        "batch_reject_16_s": ver["batch_reject_s"], "host_verify_16_s": ver["host_verify_s"],
-        "sequential_verify_s": seq_verify_s, "range_batch_verify_16_s": r_verify_s,
-        "pairing_batch_8_s": pa["pairing_batch_8_s"], "host_pairing_8_s": pa["host_pairing_8_s"],
+        "batch_reject_16_s": ver["batch_reject_s"], "host_verify_4_s": ver["host_verify_s"],
+        "range_batch_verify_16_s": r_verify_s,
         "pairing_eq_s": pa["pairing_eq_s"], "n_eq": pa["n_eq"], "equations_per_s": pa["equations_per_s"],
         "eq_encode_s": pa["eq_encode_s"], "eq_points_s": pa["eq_points_s"],
-        "product_is_one_8_s": pa["product_is_one_8_s"], "product_is_one_32_s": pa["product_is_one_32_s"],
+        "product_is_one_8_s": pa["product_is_one_8_s"],
         "pairing_peak_mem_gib": pa["pairing_peak_mem_gib"], "k4_per_call": pa["k4"],
     }
     print("verify and pairing: " + json.dumps(verify_line) + f" on {smi}", flush=True)
@@ -1552,6 +1708,18 @@ def main() -> int:
                            "k4_step": step_counts["mont_mul"], "aten_ops_step": rns_aten_ops},
                    **oi}
     print("opt-ins: " + json.dumps(opt_in_line) + f" on {smi}", flush=True)
+
+    # phase 13: the host surface (ffi, the MiMC timing loop, the benches, the gadgets)
+    hs = host_surface_phase(kl, device)
+    host_line = {
+        "s": hs["s"], "process_s": hs["process_s"], "timed_prove_verify": hs["timed_prove_verify"],
+        "pairing_batch_8_s": hs["pairing_batch_8_s"], "host_pairing_8_s": hs["host_pairing_8_s"],
+        **{f"bench_{k}": {"s": v["s"], "k4": v["k4"], "k1": v["k1"], "k2": v["k2"],
+                          "values": [[x["bench"], x["value"], x["unit"]] for x in v["lines"]]}
+           for k, v in hs["benches"].items()},
+        **hs["gadgets"],
+    }
+    print("host surface: " + json.dumps(host_line) + f" on {smi}", flush=True)
 
     # the kernels' line
     int_rate = int32_ops_per_s()
@@ -1602,6 +1770,8 @@ def main() -> int:
                 **{f"launches_step_{k}": v["k4_step"] for k, v in st["strategies"].items()},
                 **{f"launches_step_{o}": oi[o]["k4_step"] for o in OPT_INS},
                 launches_step_stacked_pippenger=oi["stacked_pippenger"]["k4_step"],
+                launches_timed_prove_verify_mock=hs["timed_prove_verify"]["k4"],
+                **{f"launches_bench_{k}": v["k4"] for k, v in hs["benches"].items()},
                 graph_floor_ms=checks["mont_mul"]["graph_floor_ms"],
                 shapes=[{"shape": [24, n], "ms": t["ms"], "eager_ms": t["eager_ms"], "plain_ms": t["plain_ms"],
                          "bound_ms": k4_bounds[n][0], "bound_by": k4_bounds[n][1]} for n, t in k4_timed.items()])
@@ -1610,8 +1780,8 @@ def main() -> int:
         "setup_s": setup_s, "prover_build_s": prover_build_s, "prove_batch_s": prove_s,
         "step_s": step_s, "steps_s": steps, "proofs_per_s": B_PROOFS / step_s, "decode_s": decode_s,
         "sequential_proof_s": seq_s, "batch_verify_16_s": ver["batch_verify_s"],
-        "verify_single_s": ver["verify_single_s"], "host_verify_16_s": ver["host_verify_s"],
-        "pairing_batch_8_s": pa["pairing_batch_8_s"], "pairing_eq_s": pa["pairing_eq_s"],
+        "verify_single_s": ver["verify_single_s"], "host_verify_4_s": ver["host_verify_s"],
+        "pairing_batch_8_s": hs["pairing_batch_8_s"], "pairing_eq_s": pa["pairing_eq_s"],
         "range_setup_s": r_setup_s, "range_prover_build_s": r_build_s,
         "range_prove_batch_s": r_prove_s, "range_sequential_proof_s": r_seq_s,
         "range_tables": [[n, k, c] for n, k, c, _ in r_info], "B": B_PROOFS, "m": m,
@@ -1620,6 +1790,8 @@ def main() -> int:
         "comb_setup_s": st["comb_setup_s"],
         **{f"{o}_step_s": oi[o]["step_s"] for o in OPT_INS},
         "stacked_pippenger_step_s": oi["stacked_pippenger"]["step_s"],
+        "host_surface_s": hs["s"],
+        **{f"bench_{k}_s": v["s"] for k, v in hs["benches"].items()},
         "peak_mem_gib": peak_mem_gib,
         "int32_ops_per_s": int_rate, "total_s": total_s,
     }), flush=True)

@@ -14,7 +14,11 @@ prove -> verify for MiMC rounds=8 (domain 32), held against the reference.
   the ceremony, checkpoint, group-NTT and Gt-byte modules and the limb MSM,
   comb and EvaluationDomain entry points, builds a table-strategy
   BatchProver, and proves the rns batch again with a GLV + merged-G1
-  BatchProver (BMT_GLV=1, BMT_MERGE_G1=1), whose proofs must be the same.
+  BatchProver (BMT_GLV=1, BMT_MERGE_G1=1), whose proofs must be the same;
+  it imports the host surface (config, ffi, benches, utils.profiling,
+  parallel.worker, r1cs.test_cs, gadgets) and hashes one byte through the
+  sha256 gadget on a TestConstraintSystem, against hashlib.
+* `BatchProver.run_step` gives `step`'s tensors.
 """
 
 import os
@@ -105,6 +109,17 @@ def test_serialized_bytes_match_reference(setup):
         tg.proof_from_bytes(proof_bytes[:-1])
 
 
+def test_run_step_equals_step(setup):
+    """BatchProver.run_step, the reference's name for the raw step, gives
+    step's tensors, which decode to the batch proofs."""
+    bp = setup.bp
+    args = bp.encode_circuits([MiMCDemo(setup.constants, xl, xr) for xl, xr in setup.wit])
+    got, want = bp.run_step(*args), bp.step(*args)
+    for g, w in zip(got, want):
+        assert all(torch.equal(x, y) for x, y in zip(g, w))
+    assert bp.decode(*got) == setup.proofs
+
+
 _JAX_FREE = """
 import os, random, sys
 sys.modules["jax"] = None
@@ -150,6 +165,20 @@ assert mpc_serialize.common_storage_from_bytes(mpc_serialize.common_storage_to_b
 assert mpc.generate_parameters_mpc(dummy, AndDemo(None, None), basis="lagrange").vk.delta_g2 == 24
 assert isinstance(eng.g1, tg.GroupAPI) and len(eng.g1.intt([eng.g1.generator()] * 2, host)) == 2
 assert gt_parse(gt_format(((((1, 2),) * 3),) * 2)) == ((((1, 2),) * 3),) * 2
+import hashlib
+from bellman_mpc_tpu_torch import benches, config, ffi
+from bellman_mpc_tpu_torch.utils import profiling
+from bellman_mpc_tpu_torch.parallel import Waiter, Worker, log2_floor, worker
+from bellman_mpc_tpu_torch.r1cs import TestConstraintSystem, test_cs
+from bellman_mpc_tpu_torch.gadgets import AllocatedBit, Boolean, sha256
+from bellman_mpc_tpu_torch.models import neo_create_parameters
+assert config.Config.from_env().pippenger_c == 8 and Worker(2).compute(lambda: 3).wait() == 3
+cs = TestConstraintSystem(host)
+bits = [Boolean.from_bit(AllocatedBit.alloc(cs.namespace(f"bit {i}"), bool((0x61 >> (7 - i)) & 1)))
+        for i in range(8)]
+digest = [b.get_value() for b in sha256(cs, bits)]
+assert cs.is_satisfied() and digest == [bool((c >> i) & 1) for c in hashlib.sha256(b"a").digest()
+                                        for i in range(7, -1, -1)]
 assert not any(m == "jax" or m.startswith(("jax.", "bellman_mpc_tpu."))
                for m in sys.modules if sys.modules[m] is not None)
 print("JAX_FREE_OK")

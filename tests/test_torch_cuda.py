@@ -1,7 +1,7 @@
 """The CUDA kernels against their plain PyTorch versions, on the card, and
 the port's device paths against the CPU or the host oracle: the pairing,
-the ceremony, the group iNTT, the limb MSMs and the comb, and every
-BatchProver strategy against the rns proofs.
+the ceremony, the group iNTT, the limb MSMs and the comb, every
+BatchProver strategy against the rns proofs, and the NTT bench's launches.
 
 Imports neither jax nor the reference, so it runs on the GPU machine:
 
@@ -490,3 +490,20 @@ def test_batch_prover_opt_ins_match_rns(mimc8, env, strategy, monkeypatch):
     k1 = sum(_windows(c, g1_bits) for name, c in tables.items() if name != "b2")
     k2 = _windows(tables["b2"], g2_bits) if tables else 0
     assert (kernel_lib.launch_counts["rns_fold_window"], kernel_lib.launch_counts["rns_fold_window_g2"]) == (k1, k2)
+
+
+@pytest.mark.cuda
+def test_bench_ntt_quick_on_card(dev, capsys):
+    """benches.bench_ntt at quick on the card: K4 once in the warm-up, then
+    once per stage of six forward NTTs of 2^10, and no plain multiply."""
+    import json
+
+    from bellman_mpc_tpu_torch import benches
+
+    kernel_lib.reset_launch_counts()
+    benches.bench_ntt(True, device=dev)
+    assert kernel_lib.launch_counts["mont_mul"] == 1 + 6 * 10
+    assert kernel_lib.plain_counts["mont_mul"] == 0
+    line = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert line["bench"] == "ntt_fr" and line["n"] == 1024 and line["value"] > 0
+    assert line["device"] == torch.cuda.get_device_name(dev)
