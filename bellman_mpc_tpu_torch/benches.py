@@ -6,8 +6,8 @@ and seeds.  It ports the reference's bench harnesses:
     n in {8, 16, ..., 64} (bellman/src/batch.rs:15-94),
   * `bench_multiexp` — the G1 multiexp of `bench_parts` at 2^16 points
     (bellman/src/slow.rs:14-44),
-plus the device benches of the NTT and the batched pairing.
-`bench_scaling` needs the mesh and is still to be ported (ROADMAP A5).
+plus the device benches of the NTT and the batched pairing, and
+`bench_scaling`, the weak scaling of the sharded table MSM over meshes.
 
 Every bench takes the device it runs on, the first CUDA card by default,
 and first makes one limb multiply there, so that the CUDA context and the
@@ -16,8 +16,8 @@ a bench up to compile its XLA programs, eager PyTorch compiles nothing.
 Each JSON line carries the reference's keys and the device's name.
 
 Run: python -m bellman_mpc_tpu_torch.benches [--quick] [names]
-With no names the four ported benches run (batch_verify, multiexp, ntt,
-pairing); `scaling` runs only when it is named, and raises.  Results print
+With no names four benches run (batch_verify, multiexp, ntt, pairing);
+`scaling` runs only when it is named, as in the reference.  Results print
 as JSON lines to stdout (one per measurement).
 """
 
@@ -167,12 +167,73 @@ def bench_pairing(quick: bool = False, device="cuda:0") -> None:
     _emit("pairing_batch", n / dt, "pairings/s", device, n=n, total_s=round(dt, 3))
 
 
-def bench_scaling(quick: bool = False, device="cuda:0") -> None:
-    """Weak scaling of the sharded table MSM over mesh sizes (SURVEY §2.6):
-    needs the mesh and the sharded MSMs, which are still to be ported."""
-    raise NotImplementedError(
-        "bench_scaling needs parallel/mesh.py and parallel/sharded.py, "
-        "still to be ported (ROADMAP A5)")
+def bench_scaling(quick: bool = False, devices: Optional[Sequence] = None) -> None:
+    """Weak scaling of the sharded table MSM over mesh sizes (SURVEY §2.6).
+
+    The per-shard base count n_per is fixed and the problem grows with the
+    mesh (N = d * n_per), so ideal scaling is a constant time; efficiency_time
+    = t(1) / t(d), efficiency_rate = rate(d) / rate(1).  The kernel is the
+    table strategy's signed-affine gather MSM sharded over "model"
+    (parallel/sharded.sharded_msm_table_affine), on (1, d) meshes for d in
+    1, 2, 4, 8 up to len(devices); `devices` defaults to the CUDA devices
+    (one card gives the d = 1 line) and may repeat a device, whose shards
+    then share it, so the lines measure no multi-card scaling.  The
+    reference's sizes, seeds and keys; `compile_s` is the first call's time
+    (eager PyTorch compiles nothing)."""
+    from .curves import host as chost
+    from .curves.device import g1_device, scalars_to_bits
+    from .fields.bls12_381 import R
+    from .ops.msm import digits_from_bits, signed_digits, window_tables_affine
+    from .parallel.mesh import make_mesh
+    from .parallel.sharded import sharded_msm_table_affine
+
+    if devices is None:
+        devices = [torch.device("cuda", i) for i in range(torch.cuda.device_count())]
+        if not devices:
+            raise RuntimeError("bench_scaling: no CUDA device; pass devices=")
+    devices = [torch.device(x) for x in devices]
+    lead = devices[0]
+    _warm(lead)
+    rng = random.Random(7)
+    n_per = 64 if quick else 128  # bases per shard (weak scaling)
+    c = 4
+    B = 2
+    sizes = [d for d in (1, 2, 4, 8) if d <= len(devices)]
+    n_max = n_per * max(sizes)
+    bases = [chost.G1.mul(chost.G1.generator, k + 1) for k in range(64)] * (n_max // 64)
+    tables_all = window_tables_affine(g1_device.ops, g1_device.encode_points(bases, lead), c)
+    scalars = [[rng.randrange(R) for _ in range(n_max)] for _ in range(B)]
+    bits_all = torch.stack([scalars_to_bits(s, 255, lead) for s in scalars], dim=1)
+    sd_all = signed_digits(digits_from_bits(bits_all, c), c)
+
+    def sync():
+        for dev in set(devices):
+            _sync(dev)
+
+    t1 = rate1 = None
+    for d in sizes:
+        n = n_per * d
+        tables = tuple(t[..., :n] for t in tables_all)
+        sd = sd_all[..., :n]
+        mesh = make_mesh(d, shape=(1, d), devices=devices[:d])
+        sync()
+        t0 = time.perf_counter()
+        sharded_msm_table_affine(mesh, g1_device.ops, tables, sd)
+        sync()
+        warm = time.perf_counter() - t0
+        iters = 3
+        t0 = time.perf_counter()
+        for _ in range(iters):
+            sharded_msm_table_affine(mesh, g1_device.ops, tables, sd)
+        sync()
+        dt = (time.perf_counter() - t0) / iters
+        rate = B * n / dt
+        if t1 is None:
+            t1, rate1 = dt, rate
+        _emit("sharded_table_msm_weak_scaling", rate, "points/s", lead,
+              devices=d, n_total=n, n_per_device=n_per, time_s=round(dt, 4),
+              efficiency_time=round(t1 / dt, 3), efficiency_rate=round(rate / rate1, 3),
+              compile_s=round(warm, 2))
 
 
 def main(argv: Optional[Sequence[str]] = None) -> None:

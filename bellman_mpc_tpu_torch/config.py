@@ -19,8 +19,9 @@ set one per call.
   BMT_TABLE_C          window bits of the gather tables (default: the
                        largest width that fits BMT_TABLE_MEM_MB, 1536)
   BMT_TABLE_SIGNED     "0" takes unsigned digits under the table strategy
-  BMT_MESH_SHAPE       "data,model" extents of a mesh: parsed here, but the
-                       mesh itself is still to be ported (ROADMAP A5)
+  BMT_MESH_SHAPE       "data,model" extents for make_mesh, e.g. "4,2"
+                       (parsed here and read by nothing, as in the
+                       reference)
   BMT_DETERMINISTIC    "1" (default) keeps the fork's fixed trapdoor/blinding
   BMT_CARRIES          "scan" | "flat" carry strategy (fields/limb.py)
   BMT_FIXED_BASE       "comb" opts into comb-table fixed-base multiplication

@@ -5,7 +5,8 @@ Port of bellman_mpc_tpu/groth16/prover.py (bellman/src/groth16/prover.rs):
   * witness synthesis with the per-input dummy constraints (prover.rs:198-204);
   * the h(x) pipeline (prover.rs:210-231: 3x (iFFT, coset-FFT), pointwise
     a*b - c, divide by Z on the coset, icoset-FFT) over (L, *batch, m) limb
-    tensors, shared with the batched prover;
+    tensors, shared with the batched prover, and its form with every NTT
+    sharded over a mesh (`_h_pipeline_sharded`);
   * the sequential prover `create_proof` / `create_random_proof`
     (prover.rs:158-350): the h pipeline on one witness, six MSMs on the
     engine's groups, the delta != identity guard, proof assembly.
@@ -55,6 +56,37 @@ def _h_pipeline(field: LimbField, host: PrimeField, exp: int):
         h = field.sub(field.mul(a, b), c)
         h = field.mul_const(h, zinv)  # divide_by_z_on_coset
         h = ntt(field, host, h, inverse=True)  # icoset_fft part 1
+        return distribute_powers(field, host, h, geninv)
+
+    return pipeline
+
+
+def _h_pipeline_sharded(field: LimbField, host: PrimeField, exp: int, mesh):
+    """`_h_pipeline` with every NTT distributed over the mesh's "model"
+    shards by the 4-step decomposition (parallel/sharded.sharded_ntt);
+    BatchProver takes it on a mesh when exp >= BMT_SHARD_NTT_EXP.  The
+    pointwise scalings and products between the transforms run on the lead
+    device.  The same limbs as `_h_pipeline`."""
+    from ..parallel.sharded import sharded_ntt
+
+    gen = host.generator
+    geninv = host.inv(gen)
+    m = 1 << exp
+    zinv = host.inv((pow(gen, m, host.p) - 1) % host.p)
+    warm_twiddles(field, host, exp)
+
+    def coset_values(x):
+        x = sharded_ntt(mesh, field, host, x, inverse=True)
+        x = distribute_powers(field, host, x, gen)
+        return sharded_ntt(mesh, field, host, x, inverse=False)
+
+    def pipeline(a, b, c):
+        a = coset_values(a)
+        b = coset_values(b)
+        c = coset_values(c)
+        h = field.sub(field.mul(a, b), c)
+        h = field.mul_const(h, zinv)
+        h = sharded_ntt(mesh, field, host, h, inverse=True)
         return distribute_powers(field, host, h, geninv)
 
     return pipeline

@@ -1,5 +1,5 @@
+from .mesh import make_mesh
 from .batch_prover import BatchProver
 from .worker import Waiter, Worker, log2_floor
 
-# make_mesh (parallel/mesh.py) is still to be ported (ROADMAP A5)
-__all__ = ["BatchProver", "Waiter", "Worker", "log2_floor"]
+__all__ = ["make_mesh", "BatchProver", "Waiter", "Worker", "log2_floor"]

@@ -25,6 +25,16 @@ The MSM strategy is fixed at construction (`msm_strategy`):
     reference's rule keyed on the engine's device.
 The limb strategies return limb points straight to the proof assembly.
 
+On a mesh (`mesh=`, parallel/mesh.make_mesh, lead device = the engine's)
+the strategy is "table" ("auto" becomes it; any other raises ValueError):
+each base set's tables are built once at full N on the lead and each
+"model" shard's N-slice is placed on its device at build (a view where the
+device is the same); the step's table MSMs run sharded, the proofs over
+"data" and the bases over "model" (parallel/sharded.py).  Under
+BMT_SHARD_NTT_EXP (default 18, read at construction) the h(x) pipeline's
+NTTs are sharded too once the domain reaches 2^BMT_SHARD_NTT_EXP.  A base
+set or a batch that does not divide by its axis raises ValueError.
+
 The reference's opt-ins, read from the environment at construction (all
 off by default; `glv`, `merge_g1` and `stack_msms` say what was built):
   * BMT_GLV=1 (rns): GLV-2 on G1 and GLS-4 on G2 (ops/glv.py).  The tables
@@ -71,7 +81,13 @@ from ..curves.device import (
 from ..curves.rns_point import default_rns_field, rns_g1_ops, rns_g2_ops
 from ..fields import bls12_381 as bc
 from ..fields.limb import LIMB_BITS, LimbField
-from ..groth16.prover import DETERMINISTIC_R, DETERMINISTIC_S, _h_pipeline, synthesize_witness
+from ..groth16.prover import (
+    DETERMINISTIC_R,
+    DETERMINISTIC_S,
+    _h_pipeline,
+    _h_pipeline_sharded,
+    synthesize_witness,
+)
 from ..groth16.types import Parameters, Proof
 from ..ops.domain import domain_size_for, warm_twiddles
 from ..ops.fold_kernels import pad_rns_table
@@ -100,6 +116,7 @@ from ..ops.msm import (
     window_tables_affine,
 )
 from ..r1cs.core import Circuit
+from .sharded import BaseShards, shard_batch_inputs, sharded_msm_table, sharded_msm_table_affine
 
 NBITS = 255  # Fr scalar bits
 STRATEGIES = ("rns", "table", "pippenger", "flatpip", "ladder")
@@ -167,9 +184,14 @@ class BatchProver:
 
     def __init__(self, engine, params: Parameters, circuit_template: Circuit,
                  msm_strategy: str = "auto", pippenger_c: int = 8, mesh=None):
-        if mesh is not None:
-            raise NotImplementedError("mesh= is not ported yet (ROADMAP.md A5)")
         assert engine.name == "bls12_381"
+        self.mesh = mesh
+        if mesh is not None:
+            if msm_strategy not in ("table", "auto"):
+                raise ValueError(f"a mesh runs the table strategy, not {msm_strategy!r}")
+            if mesh.lead != engine.device:
+                raise ValueError(f"the mesh's lead device {mesh.lead} is not the engine's {engine.device}")
+            msm_strategy = "table"
         if msm_strategy == "auto":
             msm_strategy = "rns" if engine.device.type == "cuda" else "ladder"
         if msm_strategy not in STRATEGIES:
@@ -213,6 +235,11 @@ class BatchProver:
         self.crs_a = bake(g1_device, a_all, len(a_all))
         self.crs_b1 = bake(g1_device, b1_all, len(b1_all))
         self.crs_b2 = bake(g2_device, b2_all, len(b2_all))
+        if mesh is not None:
+            for name, crs, _ in self._base_sets():
+                if crs[0].shape[-1] % mesh.shape["model"]:
+                    raise ValueError(f"the {crs[0].shape[-1]} {name} bases do not divide over "
+                                     f"{mesh.shape['model']} 'model' shards")
 
         # vk points + deterministic-blinding precomputations (host points)
         vk = params.vk
@@ -230,7 +257,11 @@ class BatchProver:
         self.gc_const = g1_device.encode_points([gc], dev)
 
         warm_twiddles(self.fr, engine.fr_host, self.exp)
-        self._pipeline = _h_pipeline(self.fr, engine.fr_host, self.exp)
+        shard_exp = int(os.environ.get("BMT_SHARD_NTT_EXP", "18"))
+        if mesh is not None and self.exp >= shard_exp:
+            self._pipeline = _h_pipeline_sharded(self.fr, engine.fr_host, self.exp, mesh)
+        else:
+            self._pipeline = _h_pipeline(self.fr, engine.fr_host, self.exp)
         from ..groth16.compiled import CompiledCircuit
 
         self.compiled = CompiledCircuit(engine, circuit_template)
@@ -247,8 +278,8 @@ class BatchProver:
         "rns": affine bucket tables (phi/psi-extended under GLV) -> int16
         RNS residues in the 80-row padded layout (the limb tables are
         freed), the four G1 sets as one concatenated table when merged;
-        "table": the limb bucket tables; "flatpip": the shifted bases of
-        sets of 16 or more."""
+        "table": the limb bucket tables (on a mesh, BaseShards of them);
+        "flatpip": the shifted bases of sets of 16 or more."""
         strategy = self.msm_strategy
         self._tables = {}
         self._merged = None
@@ -273,13 +304,16 @@ class BatchProver:
             n = crs[0].shape[-1]
             nbits, n_eff = ((GLS_NBITS, 4 * n) if g2 else (GLV_NBITS, 2 * n)) if self.glv else (NBITS, n)
             c_tab = c_env or (pick_table_c(n_eff, g2, budget, nbits) if pick else 4)
-            if not self._table_signed:
-                self._tables[id(crs)] = (window_tables(grp.ops, crs, c_tab), None, c_tab)
-                continue
-            tab = self._limb_table(grp, crs, c_tab, nbits)
             if strategy == "table":
+                if self._table_signed:
+                    tab = self._limb_table(grp, crs, c_tab, nbits)
+                else:
+                    tab = window_tables(grp.ops, crs, c_tab)
+                if self.mesh is not None:
+                    tab = BaseShards(self.mesh, tab)
                 self._tables[id(crs)] = (tab, None, c_tab)
                 continue
+            tab = self._limb_table(grp, crs, c_tab, nbits)
             rtab, bound = tables_to_rns(rns_g2_ops() if g2 else rns_g1_ops(), bc.fp, tab)
             del tab
             self._tables[id(crs)] = (pad_rns_table(default_rns_field(), rtab), bound, c_tab)
@@ -331,6 +365,8 @@ class BatchProver:
         for name, crs, _ in self._base_sets():
             if id(crs) in self._tables:
                 tab, _, c = self._tables[id(crs)]
+                if isinstance(tab, BaseShards):
+                    tab = tab.full
                 out.append((name, tab[0].shape[-1], c, nbytes(tab)))
         return out
 
@@ -350,6 +386,10 @@ class BatchProver:
                     sd = signed_digits(digits_from_bits(bits, c_tab), c_tab)
                 return msm_table_affine_rns(rns_g2_ops() if g2 else rns_g1_ops(), bc.fp, tab, sd, bound)
             digits = digits_from_bits(bits, c_tab)
+            if self.mesh is not None:
+                if self._table_signed:
+                    return sharded_msm_table_affine(self.mesh, ops, tab, signed_digits(digits, c_tab))
+                return sharded_msm_table(self.mesh, ops, tab, digits)
             if self._table_signed:
                 return msm_table_affine(ops, tab, signed_digits(digits, c_tab))
             return msm_table(ops, tab, digits)
@@ -411,6 +451,9 @@ class BatchProver:
         each coordinate (L, [2,] B, 1)."""
         fr = self.fr
         B = a8.shape[0]
+        if self.mesh is not None:
+            a8, b8, c8, wit_in8, wit_aux8 = shard_batch_inputs(
+                self.mesh, (a8, b8, c8, wit_in8, wit_aux8), batch_axis=0)
 
         def unpack(x8):
             B_, k, nb = x8.shape

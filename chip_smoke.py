@@ -3,6 +3,7 @@
 
     python3 chip_smoke.py                 # the full run (needs one CUDA card)
     python3 chip_smoke.py --kernels-only  # phases 1-3 only
+    python3 chip_smoke.py --mesh-only     # phases 1-5's setup and batch, then phase 14
 
 Phases (each raises on failure; nothing is caught):
   1. require a CUDA card and the package; print
@@ -45,8 +46,8 @@ Phases (each raises on failure; nothing is caught):
   9. pairings at scale: pairing_eq_batch on 30 equations of points made
      by the engine's device ladders, every third false, giving the known
      answers (the host encode timed apart; phase 10c runs it at 12,288
-     lanes); pairing_product_is_one timed at bucket 8; K4 counts checked
-     as in phase 5 (pairing_batch runs in phase 13);
+     lanes); K4 counts checked as in phase 5 (pairing_product_is_one runs
+     in every verify_proof, pairing_batch in phase 13);
  10. the trusted-setup ceremony (groth16/mpc.py): (a) setup, proofs and
      verification on DummyEngine on the card for the mock tests' XorDemo,
      AndDemo and AddDemo, equal to DummyEngine("cpu")'s, K4 at L = 2 only;
@@ -57,7 +58,7 @@ Phases (each raises on failure; nothing is caught):
      ladder per group) checked by verify_common_paramter (10,243
      equations, one pairing_eq_batch of 12,288 lanes): accepted, and
      rejected with two tau powers swapped; (d) the Lagrange transform
-     (engine.g1/g2.intt) of its first 32 tau points equal to L_j(tau) G;
+     (engine.g1/g2.intt) of its first 8 tau points equal to L_j(tau) G;
      prints a `ceremony:` line with the times and K4 counts;
  11. the limb MSM strategies and the rest of the slice (same MiMC-322 CRS):
      (a) BatchProver with ladder, table (signed, pick_table_c's width),
@@ -98,7 +99,23 @@ Phases (each raises on failure; nothing is caught):
      block) through the port's TestConstraintSystem: satisfied, 25,840
      constraints beyond the 512 inputs, the digest equal to hashlib's; one
      BLAKE2s of 32 bytes equal to hashlib.blake2s(person=b"12345678");
-     prints a `host surface:` line with the times and K4 counts.
+     prints a `host surface:` line with the times and K4 counts;
+ 14. the mesh (parallel/mesh.py, parallel/sharded.py), on logical shards of
+     the card: (a) BatchProver(mesh=make_mesh(4, shape=(2, 2), devices=
+     [cuda:0] * 4)) (the table strategy, c = 8, each base set's tables
+     split over "model" at build; the tables are phase 11's, kept in host
+     memory by SharedTables) and prove_batch of phase 5's 16 witnesses,
+     every proof equal to phase 5's in its 192 bytes, K4 as k4_counts says
+     per step and per decode, no fold kernel, no plain multiply; (b) h(x)
+     of phase 5's batch through _h_pipeline_sharded on a (1, 4) mesh equal
+     to _h_pipeline's canonical limbs (the raw lanes in another lazy form
+     counted), K4 as sharded_h_k4; (c) sharded_msm_table and
+     sharded_msm_table_affine on 64 G1 bases, B = 2, on a (2, 4) mesh and
+     sharded_msm (the ladder) on a (1, 2) mesh equal to the host oracle,
+     and a (1, 3) mesh refused (ValueError); (d) bench_scaling at quick,
+     its JSON lines printed; (e) with two cards or more, (a) on a mesh of
+     the real cards; prints a `mesh:` line with the build, step and decode
+     times, the peak memory and the K4 counts.
 
 Prints the kernels' JSON line (every kernel with its launches on the main
 path, error, times, bound and library yardstick), the card's name and power
@@ -140,8 +157,11 @@ INT8_TENSOR_OPS_PER_S = 1979e12
 INT32_PER_CLOCK_PER_SM = 64
 
 
+T_START = time.perf_counter()
+
+
 def log(msg: str) -> None:
-    print(msg, file=sys.stderr, flush=True)
+    print(f"[{time.perf_counter() - T_START:.1f} s] {msg}", file=sys.stderr, flush=True)
 
 
 def cuda_time_ms(fn, reps: int) -> float:
@@ -608,11 +628,11 @@ def pairings_at_scale(kl, engine, device, n_eq: int = 30, rng=None) -> dict:
     """Phase 9: pairing_eq_batch on n_eq equations e(a G1, b G2) ==
     e(c G1, G2) with c = ab, or ab + 1 in every third (false) one, the
     points made by the engine's device ladders, against the known truth,
-    with the host encode timed apart; pairing_product_is_one on 4 terms of
-    true equations (bucket 8).  Every call counted (pairing_k4_counts).
-    pairing_batch runs in phase 13's bench_pairing (8 pairs), held there
-    against the host oracle; tests/test_torch_cuda.py holds it with an
-    identity lane."""
+    with the host encode timed apart; counted (pairing_k4_counts).
+    pairing_product_is_one (4 terms, bucket 8) runs in every verify_proof
+    (phases 5 and 10b), pairing_batch in phase 13's bench_pairing (8
+    pairs), held there against the host oracle; tests/test_torch_cuda.py
+    holds it with an identity lane."""
     import torch
 
     from bellman_mpc_tpu_torch.curves.host import G1, G2
@@ -643,15 +663,6 @@ def pairings_at_scale(kl, engine, device, n_eq: int = 30, rng=None) -> dict:
     check_pairing_counts(c, k4["eq_batch"], "pairing_eq_batch")
     assert eqs.tolist() == truth, "pairing_eq_batch disagrees with the known answers"
     out.update(n_eq=n_eq, equations_per_s=n_eq / out["pairing_eq_s"])
-
-    for n_terms in (4,):  # bucket 8: true equations, split into terms
-        idx = range(0, 3 * (n_terms // 2), 3)  # every third equation is false
-        g1_terms = [a1[i] for i in idx] + [G1.neg(a2[i]) for i in idx]
-        g2_terms = [b1[i] for i in idx] + [G2.generator] * len(idx)
-        ok, c, out[f"product_is_one_{dp._bucket(n_terms)}_s"] = counted(
-            kl, lambda: dp.pairing_product_is_one(g1_terms, g2_terms, device))
-        assert ok is True, "a product of true equations is not one"
-        check_pairing_counts(c, k4["product_is_one"], "pairing_product_is_one")
     out["pairing_peak_mem_gib"] = torch.cuda.max_memory_allocated() / 2**30
     out["k4"] = k4
     return out
@@ -659,10 +670,10 @@ def pairings_at_scale(kl, engine, device, n_eq: int = 30, rng=None) -> dict:
 
 CEREMONY_POWERS = 2048  # the 2m tau powers of MiMC-322's Lagrange ceremony (m = 1024)
 # the Lagrange transform's size: cut from MiMC-322's m = 1024 to 512 as phase
-# 12 was added, then to 32 as phase 13 was (its ladders are launch-bound:
-# one stage per doubling of m; still above the 4 points that route to the
-# host butterflies)
-LAGRANGE_M = 32
+# 12 was added, to 32 as phase 13 was and to 8 as phase 14 was (its ladders
+# are launch-bound: one stage per doubling of m; still above the 4 points
+# that route to the host butterflies)
+LAGRANGE_M = 8
 # the mock Groth16 tests' trapdoor and blinding (tests/test_groth16_mock.py, tests/mod.rs:302-307)
 MOCK_TRAPDOOR = (48577, 22580, 53332, 5481, 3673)
 MOCK_BLINDING = (27134, 17146)
@@ -913,6 +924,43 @@ def ceremony(kl, engine, device, rng: random.Random, n_powers=CEREMONY_POWERS, m
     return out
 
 
+class SharedTables:
+    """Phase 11's signed affine tables kept for phase 14a, whose mesh prover
+    builds the same ones (same CRS, c = 8, 255 bits).  While `serving`,
+    BatchProver's window_tables_affine returns the stored build for the same
+    base points, else builds and stores it; `offload` moves the store to
+    host memory, so that no later measurement's device memory holds it.
+    Phase 11 runs the build itself; phase 14a's prover is built from the
+    stored tables (29-38 s saved on one H100 at 700 W, by host)."""
+
+    def __init__(self):
+        self.store = {}
+        self.hits = 0
+
+    @contextlib.contextmanager
+    def serving(self):
+        from bellman_mpc_tpu_torch.parallel import batch_prover
+
+        build = batch_prover.window_tables_affine
+
+        def cached(ops, points, c, nbits=NBITS):
+            key = (id(ops), c, nbits) + tuple(x.cpu().numpy().tobytes() for x in points)
+            if key in self.store:
+                self.hits += 1
+            else:
+                self.store[key] = build(ops, points, c, nbits)
+            return tuple(t.to(points[0].device) for t in self.store[key])
+
+        batch_prover.window_tables_affine = cached
+        try:
+            yield
+        finally:
+            batch_prover.window_tables_affine = build
+
+    def offload(self) -> None:
+        self.store = {k: tuple(t.cpu() for t in v) for k, v in self.store.items()}
+
+
 LIMB_STRATEGIES = ("ladder", "table", "pippenger", "flatpip")
 PIPPENGER_C = 8
 
@@ -932,14 +980,15 @@ def environ(**values):
                 os.environ[k] = v
 
 
-def limb_strategies(kl, engine, params, constants, circuits, want, k4) -> dict:
+def limb_strategies(kl, engine, params, constants, circuits, want, k4, shared: SharedTables) -> dict:
     """Phase 11a: BatchProver with each limb strategy (signed tables at
     pick_table_c's width; pippenger and flatpip at c = 8) on phase 5's
     witnesses: its build, one step and its decode (prove_batch's body, timed
     apart), all proofs equal to the rns proofs `want` in their 192 bytes.
     The MSMs' point operations are lazy columns, so a step launches K4 as
     rns's does (to_mont, the h(x) pipeline, std_from_mont), and no fold
-    kernel; no plain multiply runs on the card."""
+    kernel; no plain multiply runs on the card.  The table strategy's
+    tables are kept in `shared` (host memory) for phase 14a."""
     import torch
 
     from bellman_mpc_tpu_torch.groth16 import proof_to_bytes
@@ -952,8 +1001,9 @@ def limb_strategies(kl, engine, params, constants, circuits, want, k4) -> dict:
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats()
         t0 = time.perf_counter()
-        bp = BatchProver(engine, params, MiMCDemo(constants, 0, 0), msm_strategy=strategy,
-                         pippenger_c=PIPPENGER_C)
+        with shared.serving():
+            bp = BatchProver(engine, params, MiMCDemo(constants, 0, 0), msm_strategy=strategy,
+                             pippenger_c=PIPPENGER_C)
         torch.cuda.synchronize()
         build_s = time.perf_counter() - t0
         tables = [[n, k, c] for n, k, c, _ in bp.table_info()]
@@ -972,6 +1022,7 @@ def limb_strategies(kl, engine, params, constants, circuits, want, k4) -> dict:
                          "tables": tables}
         log(f"strategy {strategy}: {out[strategy]}")
         del bp, args, res
+        shared.offload()
     torch.cuda.empty_cache()
     return out
 
@@ -1009,7 +1060,7 @@ def domain_h(kl, engine, circuit) -> dict:
     return {"m": m, "s": s, "k4": c["mont_mul"]}
 
 
-def strategies_phase(kl, engine, params, constants, circuits, proofs, k4) -> dict:
+def strategies_phase(kl, engine, params, constants, circuits, proofs, k4, shared: SharedTables) -> dict:
     """Phase 11: the limb strategies (a), setup under BMT_FIXED_BASE=comb
     (b), a sequential proof under BMT_MSM_STRATEGY=pippenger (c) and h(x)
     through EvaluationDomain (d)."""
@@ -1021,7 +1072,7 @@ def strategies_phase(kl, engine, params, constants, circuits, proofs, k4) -> dic
     )
     from bellman_mpc_tpu_torch.models import MiMCDemo
 
-    out = {"strategies": limb_strategies(kl, engine, params, constants, circuits, proofs, k4)}
+    out = {"strategies": limb_strategies(kl, engine, params, constants, circuits, proofs, k4, shared)}
     with environ(BMT_FIXED_BASE="comb"):
         comb, c, out["comb_setup_s"] = counted(kl, lambda: generate_random_parameters(engine, MiMCDemo(constants)))
     check_no_fold(c, "comb setup")
@@ -1398,6 +1449,211 @@ def host_surface_phase(kl, device) -> dict:
     return out
 
 
+MESH_SHAPE = (2, 2)  # phase 14a: four logical shards of the one card
+MESH_MSM_BASES = 64  # phase 14c, at B = 2 on a (2, 4) mesh (tests/test_sharded.py's shape)
+# phase 14c's ladder: cut from (2, 4) to (1, 2) for the script's time (each
+# logical shard runs 255 launch-bound bit steps in turn: 48-65 s at (2, 4)
+# on one H100 at 700 W, by host); the table MSMs keep (2, 4)
+MESH_LADDER_SHAPE = (1, 2)
+
+
+def sharded_h_k4(exp: int, d: int) -> int:
+    """K4 launches of _h_pipeline_sharded over d "model" shards at 2^exp:
+    per sharded NTT d x (2 + exp - log2 d) multiplies (the size-d DFT, the
+    twiddle, the row NTTs) and d more on inverse (the row NTT's 1/N2, the
+    1/N1); 4 inverse and 3 forward NTTs, then distribute_powers and the
+    pointwise products as in _h_pipeline."""
+    e2 = exp - (d.bit_length() - 1)
+    return d * (7 * e2 + 22) + 8 * exp + 6
+
+
+def mont_batch(bp, args):
+    """The (a, b, c) Montgomery limbs (L, B, m) of encoded circuits, as
+    BatchProver.step unpacks them."""
+    import torch
+
+    fr = bp.fr
+
+    def unpack(x8):
+        B, k, nb = x8.shape
+        return fr.unpack_device(x8.reshape(B * k, nb)).reshape(fr.L, B, k)
+
+    abc = fr.to_mont(torch.stack([unpack(x) for x in args[:3]], dim=1))
+    return abc[:, 0], abc[:, 1], abc[:, 2]
+
+
+def mesh_prove(kl, engine, params, constants, circuits, want_bytes, k4, mesh, shared=None) -> dict:
+    """Phase 14a (and e): BatchProver(mesh=) built, then prove_batch, its
+    step and decode timed and counted apart; every proof equal to phase 5's
+    in its 192 bytes, K4 as k4_counts says (the MSMs' point operations are
+    lazy columns), no fold kernel, no plain multiply.  With `shared`, the
+    tables come from phase 11's build (SharedTables)."""
+    import torch
+
+    from bellman_mpc_tpu_torch.groth16 import proof_to_bytes
+    from bellman_mpc_tpu_torch.models import MiMCDemo
+    from bellman_mpc_tpu_torch.parallel import BatchProver
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    with shared.serving() if shared else contextlib.nullcontext():
+        bp = BatchProver(engine, params, MiMCDemo(constants, 0, 0), mesh=mesh)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    tables = [[n, k, c] for n, k, c, _ in bp.table_info()]
+    assert bp.msm_strategy == "table" and all(c == 8 for _, _, c in tables), tables
+    parts = {}
+
+    def part(name, fn):
+        def run(*a):
+            torch.cuda.synchronize()
+            before = dict(kl.launch_counts)
+            t = time.perf_counter()
+            out = fn(*a)
+            torch.cuda.synchronize()
+            parts[name] = (time.perf_counter() - t, {k: v - before[k] for k, v in kl.launch_counts.items()})
+            return out
+        return run
+
+    bp.step, bp.decode = part("step", bp.step), part("decode", bp.decode)
+    proofs, c, prove_s = counted(kl, lambda: bp.prove_batch(circuits))
+    (step_s, c_step), (decode_s, c_dec) = parts["step"], parts["decode"]
+    assert c_step["mont_mul"] == k4["step"] and c_dec["mont_mul"] == k4["decode"], (c_step, c_dec, k4)
+    assert c["mont_mul_plain"] == 0, c
+    check_no_fold(c, f"mesh {mesh.shape} prove_batch")
+    assert [proof_to_bytes(p) for p in proofs] == want_bytes, f"mesh {mesh.shape}: proofs differ from rns's"
+    out = {"shape": [mesh.shape["data"], mesh.shape["model"]], "devices": [str(x) for r in mesh.grid for x in r],
+           "build_s": build_s, "prove_batch_s": prove_s, "step_s": step_s, "decode_s": decode_s,
+           "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30,
+           "k4_step": c_step["mont_mul"], "k4_decode": c_dec["mont_mul"], "tables": tables}
+    del bp
+    torch.cuda.empty_cache()
+    return out
+
+
+def sharded_h(kl, bp_args, engine, exp: int) -> dict:
+    """Phase 14b: h(x) of phase 5's batch through _h_pipeline_sharded on a
+    (1, 4) mesh (N1 = 4) gives _h_pipeline's canonical limbs; K4 as
+    sharded_h_k4.  The two transforms may leave a value in another lazy
+    form below 2p (0 as p in MiMC's top coefficient, which the prover
+    drops), so the raw lanes that differ are counted, not required equal."""
+    import torch
+
+    from bellman_mpc_tpu_torch.groth16.prover import _h_pipeline, _h_pipeline_sharded
+    from bellman_mpc_tpu_torch.parallel import make_mesh
+
+    bp, args = bp_args
+    abc = mont_batch(bp, args)
+    mesh = make_mesh(4, shape=(1, 4), devices=[engine.device] * 4)
+    got, c, s = counted(kl, lambda: _h_pipeline_sharded(engine.fr, engine.fr_host, exp, mesh)(*abc))
+    assert c["mont_mul"] == sharded_h_k4(exp, 4) and c["mont_mul_plain"] == 0, c
+    check_no_fold(c, "sharded h(x)")
+    want, c_local, s_local = counted(kl, lambda: _h_pipeline(engine.fr, engine.fr_host, exp)(*abc))
+    fr = engine.fr
+    assert torch.equal(fr.canon(got), fr.canon(want)), "sharded h(x) != _h_pipeline's"
+    return {"shape": [1, 4], "B": abc[0].shape[1], "m": 1 << exp, "s": s, "local_s": s_local,
+            "k4": c["mont_mul"], "k4_local": c_local["mont_mul"],
+            "raw_lanes_differ": int((got != want).any(0).sum())}
+
+
+def sharded_msms(kl, device) -> dict:
+    """Phase 14c: sharded_msm_table and sharded_msm_table_affine (c = 4) on
+    64 G1 bases k G (k = 1..64), B = 2, on a (2, 4) mesh of logical shards,
+    and sharded_msm (the ladder) on MESH_LADDER_SHAPE, each equal to the
+    host oracle (sum_k s_k k) G; a (1, 3) mesh over 48 bases raises the
+    butterfly's power-of-two ValueError before any shard's work."""
+    import torch
+
+    from bellman_mpc_tpu_torch.curves import host as chost
+    from bellman_mpc_tpu_torch.curves.device import g1_device, scalars_to_bits
+    from bellman_mpc_tpu_torch.fields.bls12_381 import R
+    from bellman_mpc_tpu_torch.ops.msm import digits_from_bits, signed_digits, window_tables, window_tables_affine
+    from bellman_mpc_tpu_torch.parallel import make_mesh
+    from bellman_mpc_tpu_torch.parallel.sharded import sharded_msm, sharded_msm_table, sharded_msm_table_affine
+
+    rng = random.Random(14)
+    n, B, c = MESH_MSM_BASES, 2, 4
+    G = chost.G1.generator
+    bases = [chost.G1.mul(G, k + 1) for k in range(n)]
+    scalars = [[rng.randrange(R) for _ in range(n)] for _ in range(B)]
+    want = [chost.G1.mul(G, sum(s * (k + 1) for k, s in enumerate(row)) % R) for row in scalars]
+    pts = g1_device.encode_points(bases, device)
+    bits = torch.stack([scalars_to_bits(s, NBITS, device) for s in scalars], dim=1)
+    mesh = make_mesh(8, shape=(2, 4), devices=[device] * 8)
+    ops = g1_device.ops
+    out = {"n": n, "B": B, "shape": [2, 4], "ladder_shape": list(MESH_LADDER_SHAPE)}
+    t0 = time.perf_counter()
+    tab = window_tables(ops, pts, c)
+    atab = window_tables_affine(ops, pts, c)
+    torch.cuda.synchronize()
+    out["tables_s"] = time.perf_counter() - t0
+    d, m = MESH_LADDER_SHAPE
+    ladder_mesh = make_mesh(d * m, shape=MESH_LADDER_SHAPE, devices=[device] * (d * m))
+    runs = {"ladder": lambda: sharded_msm(ladder_mesh, ops, pts, bits),
+            "table": lambda: sharded_msm_table(mesh, ops, tab, digits_from_bits(bits, c)),
+            "table_affine": lambda: sharded_msm_table_affine(mesh, ops, atab,
+                                                             signed_digits(digits_from_bits(bits, c), c))}
+    for name, fn in runs.items():
+        res, cnt, s = counted(kl, fn)
+        assert res[0].shape[-2:] == (B, 1) and res[0].device == device, res[0].shape
+        got = g1_device.decode_points(tuple(x[..., 0] for x in res))
+        assert all(chost.G1.eq(g, w) for g, w in zip(got, want)), f"sharded {name} MSM != host oracle"
+        assert cnt["mont_mul_plain"] == 0, cnt
+        check_no_fold(cnt, f"sharded {name} MSM")
+        out[name] = {"s": s, "k4": cnt["mont_mul"]}
+    mesh3 = make_mesh(3, shape=(1, 3), devices=[device] * 3)
+    assert raises(ValueError, lambda: sharded_msm(mesh3, ops, g1_device.encode_points(bases[:48], device),
+                                                  bits[..., :48])), "(1, 3) mesh not refused"
+    return out
+
+
+def mesh_phase(kl, engine, params, constants, circuits, proofs, k4, shared=None) -> dict:
+    """Phase 14: (a) BatchProver on a (2, 2) mesh of logical shards of the
+    card; (b) the sharded h(x); (c) the three sharded MSMs and the
+    butterfly's refusal; (d) bench_scaling at quick (one card: the d = 1
+    line); (e) with two cards or more, (a) again on a mesh of real cards."""
+    import io
+
+    import torch
+
+    from bellman_mpc_tpu_torch import benches
+    from bellman_mpc_tpu_torch.groth16 import proof_to_bytes
+    from bellman_mpc_tpu_torch.parallel import BatchProver, make_mesh
+
+    t_phase = time.perf_counter()
+    dev = engine.device
+    want_bytes = [proof_to_bytes(p) for p in proofs]
+    mesh = make_mesh(4, shape=MESH_SHAPE, devices=[dev] * 4)
+    out = {"logical": mesh_prove(kl, engine, params, constants, circuits, want_bytes, k4, mesh, shared)}
+    if shared:
+        out["logical"]["tables_from_phase_11"] = shared.hits
+        shared.store.clear()
+    log(f"mesh {MESH_SHAPE}: {out['logical']}")
+    bp1 = BatchProver(engine, params, circuits[0], msm_strategy="ladder")  # its encoder only
+    exp = bp1.m.bit_length() - 1
+    out["sharded_h"] = sharded_h(kl, (bp1, bp1.encode_circuits(circuits)), engine, exp)
+    del bp1
+    out["msms"] = sharded_msms(kl, dev)
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        _, c, s = counted(kl, lambda: benches.bench_scaling(True))
+    lines = [json.loads(x) for x in buf.getvalue().splitlines()]
+    for line in lines:
+        print(json.dumps(line), flush=True)
+        assert BENCH_KEYS <= set(line) and line["value"] > 0, line
+    assert [x["devices"] for x in lines] == [d for d in (1, 2, 4, 8) if d <= torch.cuda.device_count()], lines
+    no_plain(c, "bench_scaling")
+    check_no_fold(c, "bench_scaling")
+    out["bench_scaling"] = {"s": s, "k4": c["mont_mul"], "values": [[x["devices"], x["value"]] for x in lines]}
+    n_cards = torch.cuda.device_count()
+    if n_cards >= 2:
+        cards = make_mesh(4, shape=(2, 2)) if n_cards >= 4 else make_mesh(2, shape=(1, 2))
+        out["cards"] = mesh_prove(kl, engine, params, constants, circuits, want_bytes, k4, cards)
+    out["s"] = time.perf_counter() - t_phase
+    return out
+
+
 def int32_ops_per_s() -> float:
     """The card's peak rate of 32-bit integer instructions: SMs x 64 per
     clock x the maximum SM clock that nvidia-smi reports."""
@@ -1509,6 +1765,7 @@ def counted(kl, fn):
 def main() -> int:
     t_start = time.perf_counter()
     kernels_only = "--kernels-only" in sys.argv[1:]
+    mesh_only = "--mesh-only" in sys.argv[1:]
     import torch
 
     if not torch.cuda.is_available():
@@ -1581,6 +1838,12 @@ def main() -> int:
     assert counts["rns_fold_window"] == 4 * W and counts["rns_fold_window_g2"] == W, counts
     assert counts["mont_mul"] == k4["step"] + k4["decode"] and counts["rns_mul_many"] == 0, (counts, k4)
     assert counts["mont_mul_plain"] == 0, counts
+    if mesh_only:
+        del bp
+        torch.cuda.empty_cache()
+        mp = mesh_phase(kl, engine, params, constants, circuits, proofs, k4)
+        print("mesh: " + json.dumps(mp) + f" on {smi} (the shards of a one-card mesh share the card)", flush=True)
+        return 0
     pvk = prepare_verifying_key(engine, params.vk)
     inputs = [[mimc(host, xl, xr, constants)] for xl, xr in wit]
     ver = verify_on_card(kl, engine, params, pvk, proofs, inputs)
@@ -1663,7 +1926,6 @@ def main() -> int:
         "range_batch_verify_16_s": r_verify_s,
         "pairing_eq_s": pa["pairing_eq_s"], "n_eq": pa["n_eq"], "equations_per_s": pa["equations_per_s"],
         "eq_encode_s": pa["eq_encode_s"], "eq_points_s": pa["eq_points_s"],
-        "product_is_one_8_s": pa["product_is_one_8_s"],
         "pairing_peak_mem_gib": pa["pairing_peak_mem_gib"], "k4_per_call": pa["k4"],
     }
     print("verify and pairing: " + json.dumps(verify_line) + f" on {smi}", flush=True)
@@ -1692,7 +1954,8 @@ def main() -> int:
 
     # phase 11: the limb strategies, the comb setup, the pippenger sequential
     # proof and h(x) through EvaluationDomain
-    st = strategies_phase(kl, engine, params, constants, circuits, proofs, k4)
+    shared = SharedTables()
+    st = strategies_phase(kl, engine, params, constants, circuits, proofs, k4, shared)
     strategy_line = {"rns": {"build_s": prover_build_s, "step_s": step_s, "decode_s": decode_s,
                              "k4_step": step_counts["mont_mul"]},
                      **st["strategies"], "ladder_setup_s": setup_s, "comb_setup_s": st["comb_setup_s"],
@@ -1720,6 +1983,10 @@ def main() -> int:
         **hs["gadgets"],
     }
     print("host surface: " + json.dumps(host_line) + f" on {smi}", flush=True)
+
+    # phase 14: the mesh (logical shards of the card; real cards where there are two or more)
+    mp = mesh_phase(kl, engine, params, constants, circuits, proofs, k4, shared)
+    print("mesh: " + json.dumps(mp) + f" on {smi} (the shards of a one-card mesh share the card)", flush=True)
 
     # the kernels' line
     int_rate = int32_ops_per_s()
@@ -1772,6 +2039,8 @@ def main() -> int:
                 launches_step_stacked_pippenger=oi["stacked_pippenger"]["k4_step"],
                 launches_timed_prove_verify_mock=hs["timed_prove_verify"]["k4"],
                 **{f"launches_bench_{k}": v["k4"] for k, v in hs["benches"].items()},
+                launches_step_mesh_2x2=mp["logical"]["k4_step"], launches_decode_mesh_2x2=mp["logical"]["k4_decode"],
+                launches_sharded_h_1x4=mp["sharded_h"]["k4"], launches_bench_scaling=mp["bench_scaling"]["k4"],
                 graph_floor_ms=checks["mont_mul"]["graph_floor_ms"],
                 shapes=[{"shape": [24, n], "ms": t["ms"], "eager_ms": t["eager_ms"], "plain_ms": t["plain_ms"],
                          "bound_ms": k4_bounds[n][0], "bound_by": k4_bounds[n][1]} for n, t in k4_timed.items()])
@@ -1791,6 +2060,7 @@ def main() -> int:
         **{f"{o}_step_s": oi[o]["step_s"] for o in OPT_INS},
         "stacked_pippenger_step_s": oi["stacked_pippenger"]["step_s"],
         "host_surface_s": hs["s"],
+        "mesh_s": mp["s"], "mesh_2x2_build_s": mp["logical"]["build_s"], "mesh_2x2_step_s": mp["logical"]["step_s"],
         **{f"bench_{k}_s": v["s"] for k, v in hs["benches"].items()},
         "peak_mem_gib": peak_mem_gib,
         "int32_ops_per_s": int_rate, "total_s": total_s,

@@ -7,17 +7,19 @@ prove -> verify for MiMC rounds=8 (domain 32), held against the reference.
 * The port's sequential `create_random_proof` equals the reference's and
   the port's batch proof 0; its serialized proof, verifying key and
   parameters equal the reference's bytes and read back to the same objects.
-* The port's `generate_random_parameters` equals the reference's.
 * In a subprocess with jax made unimportable, the port runs its own
-  setup -> prove -> verify, a sequential RangeDemo proof on parameters
-  read from the port's serialized bytes, and the mock ceremony; it imports
-  the ceremony, checkpoint, group-NTT and Gt-byte modules and the limb MSM,
-  comb and EvaluationDomain entry points, builds a table-strategy
-  BatchProver, and proves the rns batch again with a GLV + merged-G1
-  BatchProver (BMT_GLV=1, BMT_MERGE_G1=1), whose proofs must be the same;
-  it imports the host surface (config, ffi, benches, utils.profiling,
-  parallel.worker, r1cs.test_cs, gadgets) and hashes one byte through the
-  sha256 gadget on a TestConstraintSystem, against hashlib.
+  setup (whose parameters equal the reference's CRS) -> prove -> verify,
+  a sequential RangeDemo proof on parameters read from the port's
+  serialized bytes, and the mock ceremony; it imports the ceremony,
+  checkpoint, group-NTT and Gt-byte modules and the limb MSM, comb and
+  EvaluationDomain entry points, the mesh and the sharded functions,
+  builds a BatchProver on a (2, 2) mesh of CPU shards (the table
+  strategy) and runs a sharded NTT, and proves the rns batch again with a
+  GLV + merged-G1 BatchProver (BMT_GLV=1, BMT_MERGE_G1=1), whose proofs
+  must be the same; it imports the host surface (config, ffi, benches,
+  utils.profiling, parallel.worker, r1cs.test_cs, gadgets) and hashes one
+  byte through the sha256 gadget on a TestConstraintSystem, against
+  hashlib.
 * `BatchProver.run_step` gives `step`'s tensors.
 """
 
@@ -51,9 +53,41 @@ REPO = Path(__file__).resolve().parents[1]
 
 
 @pytest.fixture(scope="module")
-def setup():
+def jax_free_run(tmp_path_factory):
+    """_JAX_FREE started in a subprocess, which runs alongside this module's
+    in-process work (it needs only the reference's RangeDemo parameters):
+    the process, its output files and the file where it writes the
+    parameters of its own setup."""
+    tmp = tmp_path_factory.mktemp("jax_free")
+    setup = RefRangeDemo(a=1, b=2, n=4, w=9, wArray=[0, 0, 0, 0], less_or_equal=1, less=1,
+                         not_all_zeros=1)
+    r_params = interop.params_from(generate_random_parameters(BLS12_381, setup))
+    (tmp / "range.params").write_bytes(tg.params_to_bytes(r_params))
+    env = dict(os.environ, OMP_NUM_THREADS="1")
+    env["PYTHONPATH"] = str(REPO) + os.pathsep + env.get("PYTHONPATH", "")
+    with open(tmp / "out", "w") as out, open(tmp / "err", "w") as err:
+        proc = subprocess.Popen([sys.executable, "-c", _JAX_FREE, str(tmp / "range.params"),
+                                 str(tmp / "mimc.params")], cwd=REPO, env=env, stdout=out, stderr=err)
+    yield proc, tmp
+    if proc.poll() is None:
+        proc.kill()
+        proc.wait()
+
+
+@pytest.fixture(scope="module")
+def jax_free(jax_free_run):
+    """The subprocess's exit code, output and error, and its parameters file."""
+    proc, tmp = jax_free_run
+    rc = proc.wait(timeout=600)
+    return SimpleNamespace(returncode=rc, stdout=(tmp / "out").read_text(),
+                           stderr=(tmp / "err").read_text()), tmp / "mimc.params"
+
+
+@pytest.fixture(scope="module")
+def setup(jax_free_run):
     """The reference's CRS and sequential proofs, and the port's batch and
-    sequential proofs of the same two witnesses on that CRS."""
+    sequential proofs of the same two witnesses on that CRS (made while the
+    jax-free subprocess runs)."""
     host = BLS12_381.fr_host
     constants = mimc_constants(host, seed=9, rounds=ROUNDS)
     ref_params = generate_random_parameters(BLS12_381, RefMiMC(constants))
@@ -72,8 +106,11 @@ def setup():
     )
 
 
-def test_crs_matches_reference(setup):
-    port_params = tg.generate_random_parameters(setup.engine, MiMCDemo(setup.constants))
+def test_crs_matches_reference(setup, jax_free):
+    """The port's generate_random_parameters (run in the jax-free
+    subprocess, bytes read back) equals the reference's CRS."""
+    _, path = jax_free
+    port_params = tg.params_from_bytes(path.read_bytes())
     assert port_params == setup.params
     assert interop.params_to(port_params, RefParameters, RefVerifyingKey) == setup.ref_params
 
@@ -124,22 +161,29 @@ _JAX_FREE = """
 import os, random, sys
 sys.modules["jax"] = None
 from bellman_mpc_tpu_torch import groth16 as tg
-from bellman_mpc_tpu_torch.fields.mock import mock
+from bellman_mpc_tpu_torch.fields.mock import mock, mock_host
 from bellman_mpc_tpu_torch.models import AndDemo, MiMCDemo, RangeDemo, RangeDemoExplicit, mimc, mimc_constants
 from bellman_mpc_tpu_torch.ops import group_ntt, kernel_lib, mont_kernels, pairing, tower
 from bellman_mpc_tpu_torch.groth16 import mpc, mpc_serialize, verifier_batch
 from bellman_mpc_tpu_torch.utils import gt_format, gt_parse
-from bellman_mpc_tpu_torch.parallel import BatchProver
+from bellman_mpc_tpu_torch.parallel import BatchProver, make_mesh
+from bellman_mpc_tpu_torch.parallel import mesh as pmesh, sharded
 from bellman_mpc_tpu_torch.ops.msm import batch_mul_comb_host, msm_flat_pippenger
-from bellman_mpc_tpu_torch.ops.domain import EvaluationDomain
+from bellman_mpc_tpu_torch.ops.domain import EvaluationDomain, ntt
 assert callable(EvaluationDomain.coset_fft)
 eng = tg.Bls12Engine("cpu")
 host = eng.fr_host
 constants = mimc_constants(host, seed=9, rounds=8)
 params = tg.generate_random_parameters(eng, MiMCDemo(constants))
+with open(sys.argv[2], "wb") as fh:
+    fh.write(tg.params_to_bytes(params))
 bp = BatchProver(eng, params, MiMCDemo(constants, 0, 0), msm_strategy="rns")
-assert [c for _, _, c, _ in BatchProver(eng, params, MiMCDemo(constants, 0, 0),
-                                        msm_strategy="table").table_info()] == [4] * 5
+cpu_mesh = make_mesh(4, devices=["cpu"] * 4)
+assert pmesh.make_mesh is make_mesh and cpu_mesh.shape == {"data": 2, "model": 2}
+bp_mesh = BatchProver(eng, params, MiMCDemo(constants, 0, 0), mesh=cpu_mesh)
+assert bp_mesh.msm_strategy == "table" and [c for _, _, c, _ in bp_mesh.table_info()] == [4] * 5
+x = mock.encode(list(range(16)))
+assert mock.decode(sharded.sharded_ntt(cpu_mesh, mock, mock_host, x)) == mock.decode(ntt(mock, mock_host, x))
 rng = random.Random(8)
 wit = [(rng.randrange(host.p), rng.randrange(host.p)) for _ in range(2)]
 proofs = bp.prove_batch([MiMCDemo(constants, a, b) for a, b in wit])
@@ -185,14 +229,7 @@ print("JAX_FREE_OK")
 """
 
 
-def test_port_runs_without_jax(tmp_path):
-    setup = RefRangeDemo(a=1, b=2, n=4, w=9, wArray=[0, 0, 0, 0], less_or_equal=1, less=1,
-                         not_all_zeros=1)
-    r_params = interop.params_from(generate_random_parameters(BLS12_381, setup))
-    (tmp_path / "range.params").write_bytes(tg.params_to_bytes(r_params))
-    env = dict(os.environ, OMP_NUM_THREADS="1")
-    env["PYTHONPATH"] = str(REPO) + os.pathsep + env.get("PYTHONPATH", "")
-    out = subprocess.run([sys.executable, "-c", _JAX_FREE, str(tmp_path / "range.params")],
-                         cwd=REPO, env=env, capture_output=True, text=True, timeout=600)
+def test_port_runs_without_jax(jax_free):
+    out, _ = jax_free
     assert out.returncode == 0, out.stderr[-3000:]
     assert "JAX_FREE_OK" in out.stdout

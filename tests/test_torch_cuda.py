@@ -1,7 +1,8 @@
 """The CUDA kernels against their plain PyTorch versions, on the card, and
 the port's device paths against the CPU or the host oracle: the pairing,
 the ceremony, the group iNTT, the limb MSMs and the comb, every
-BatchProver strategy against the rns proofs, and the NTT bench's launches.
+BatchProver strategy against the rns proofs, the NTT bench's launches, and
+the (2, 2) logical mesh of one card against the table strategy.
 
 Imports neither jax nor the reference, so it runs on the GPU machine:
 
@@ -507,3 +508,27 @@ def test_bench_ntt_quick_on_card(dev, capsys):
     line = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
     assert line["bench"] == "ntt_fr" and line["n"] == 1024 and line["value"] > 0
     assert line["device"] == torch.cuda.get_device_name(dev)
+
+
+# --------------------------------------------------------------- the mesh
+
+
+@pytest.mark.cuda
+def test_batch_prover_logical_mesh_matches_table(mimc8):
+    """BatchProver on a (2, 2) mesh of logical shards of cuda:0 gives the
+    single-device table strategy's proofs (and the rns proofs), with no
+    plain multiply and no fold kernel; make_mesh with no devices takes the
+    CUDA devices."""
+    from bellman_mpc_tpu_torch.models import MiMCDemo
+    from bellman_mpc_tpu_torch.parallel import BatchProver, make_mesh
+
+    eng, params, constants, circuits, want = mimc8
+    assert make_mesh(1).lead == torch.device("cuda", 0)
+    mesh = make_mesh(4, shape=(2, 2), devices=["cuda:0"] * 4)
+    bp_table = BatchProver(eng, params, MiMCDemo(constants, 0, 0), msm_strategy="table")
+    bp_mesh = BatchProver(eng, params, MiMCDemo(constants, 0, 0), mesh=mesh)
+    kernel_lib.reset_launch_counts()
+    proofs = bp_mesh.prove_batch(circuits)
+    assert kernel_lib.plain_counts["mont_mul"] == 0 and kernel_lib.launch_counts["mont_mul"] > 0
+    assert _no_fold()
+    assert proofs == bp_table.prove_batch(circuits) == want

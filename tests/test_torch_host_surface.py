@@ -291,11 +291,35 @@ def test_benches_main_selects(monkeypatch):
     assert calls == [("scaling", False)]
 
 
-def test_bench_scaling_raises():
-    with pytest.raises(NotImplementedError, match="A5"):
+def test_bench_scaling_raises(capsys, monkeypatch):
+    """bench_scaling at quick over two logical CPU shards prints the d = 1
+    and d = 2 lines with the reference's keys; each timed call gets a
+    (1, d) mesh over the given devices, the first 64 d table columns and
+    digits of two proofs.  The sharded MSM itself is held against the host
+    oracle in tests/test_torch_sharded.py, so here it is a recorder (and
+    the table build a placeholder of the right shape): the harness alone."""
+    from bellman_mpc_tpu_torch.ops import msm
+    from bellman_mpc_tpu_torch.parallel import sharded
+
+    calls = []
+    monkeypatch.setattr(msm, "window_tables_affine", lambda ops, pts, c: tuple(
+        torch.zeros(pts[0].shape[:-1] + (64, 9, pts[0].shape[-1]), dtype=torch.int32) for _ in range(2)))
+    monkeypatch.setattr(sharded, "sharded_msm_table_affine", lambda mesh, ops, tables, sd: calls.append(
+        (mesh.shape, [str(d) for row in mesh.grid for d in row], tables[0].shape[-1], tuple(sd.shape))))
+    benches.bench_scaling(True, devices=["cpu"] * 2)
+    lines = [json.loads(x) for x in capsys.readouterr().out.strip().splitlines()]
+    assert [x["devices"] for x in lines] == [1, 2]
+    for x in lines:
+        assert set(x) == {"bench", "value", "unit", "devices", "n_total", "n_per_device", "time_s",
+                          "efficiency_time", "efficiency_rate", "compile_s", "device"}
+        assert x["bench"] == "sharded_table_msm_weak_scaling" and x["unit"] == "points/s"
+        assert x["n_total"] == 64 * x["devices"] and x["n_per_device"] == 64 and x["device"] == "cpu"
+    assert lines[0]["efficiency_time"] == lines[0]["efficiency_rate"] == 1.0
+    assert calls == [({"data": 1, "model": 1}, ["cpu"], 64, (65, 2, 64))] * 4 + [
+        ({"data": 1, "model": 2}, ["cpu", "cpu"], 128, (65, 2, 128))] * 4
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 0)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
         benches.bench_scaling(True)
-    with pytest.raises(NotImplementedError, match="A5"):
-        benches.main(["--quick", "scaling"])
 
 
 def test_bench_ntt_quick_cpu(capsys):

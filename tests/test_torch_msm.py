@@ -96,14 +96,20 @@ def test_msm_pippenger_batched_vs_host(g2):
     _assert_points(hostg, dev, tmsm.msm_pippenger_batched(dev.ops, pts, digits, 4), want)
 
 
+@pytest.fixture(scope="module")
+def g1_case():
+    """_msm_case on G1 (seed 12), shared by the limb MSM cases."""
+    return _msm_case(chost.G1, tdev.g1_device, 12)
+
+
 @pytest.mark.parametrize("kind", ["pippenger", "flatpip", "table", "table_affine"])
-def test_limb_msms_vs_host(kind):
+def test_limb_msms_vs_host(g1_case, kind):
     """msm_pippenger (one scalar set), msm_flat_pippenger over shifted bases,
     msm_table over projective tables and msm_table_affine over affine tables
     with signed digits, on G1."""
     hostg, dev = chost.G1, tdev.g1_device
     ops, c = dev.ops, 4
-    pts, digits, want = _msm_case(hostg, dev, 12)
+    pts, digits, want = g1_case
     if kind == "pippenger":
         out = tmsm.msm_pippenger(ops, pts, digits[:, 0], c)
         assert hostg.eq(dev.decode_points(out)[0], want[0])

@@ -5,6 +5,14 @@
   fold), both together, and BMT_STACK_MSMS=1 with ladder and with pippenger
   each give the reference's `create_random_proof` bytes; their tables, fold
   windows (the fold kernels' calls) and limb multiplies are as derived;
+* on the same CRS and witnesses, `mesh=` (a mesh of logical CPU shards,
+  the table strategy) at (2, 2), and at (1, 4) with every NTT sharded
+  (BMT_SHARD_NTT_EXP=0), gives the reference's bytes too, and a batch
+  that does not divide over "data" raises ValueError;
+* the provers of this module build their affine limb tables once: a
+  build serves every later prover that asks for the same base points,
+  width and scalar bits (GLV's for GLV and both, the plain ones for merged
+  and the meshes);
 * under BMT_CARRIES=scan the limb field's add, sub, neg, canon, redc_cols,
   propagate and plain multiply give the flat strategy's raw limbs and the
   reference's scan limbs, and the h(x) pipeline and a decode give the flat
@@ -39,7 +47,7 @@ from bellman_mpc_tpu_torch.fields.limb import LimbField
 from bellman_mpc_tpu_torch.groth16.prover import _h_pipeline, synthesize_witness
 from bellman_mpc_tpu_torch.models import MiMCDemo
 from bellman_mpc_tpu_torch.ops import fold_kernels
-from bellman_mpc_tpu_torch.parallel import BatchProver
+from bellman_mpc_tpu_torch.parallel import BatchProver, batch_prover, make_mesh
 
 torch.set_num_threads(1)  # tiny CPU tensors: threads only contend with the other test workers
 
@@ -83,9 +91,38 @@ OPT_INS = {
 }
 
 
+@pytest.fixture(scope="module")
+def limb_tables():
+    """The affine limb tables built in this module, by base points, width
+    and scalar bits."""
+    return {}
+
+
+def _share_tables(monkeypatch, cache):
+    """BatchProver's window_tables_affine returns the module's earlier build
+    for the same base points, width and bits (nothing writes to a table)."""
+    build = batch_prover.window_tables_affine
+
+    def cached(ops, points, c, nbits=255):
+        key = (id(ops), c, nbits) + tuple(x.numpy().tobytes() for x in points)
+        if key not in cache:
+            cache[key] = build(ops, points, c, nbits)
+        return cache[key]
+
+    monkeypatch.setattr(batch_prover, "window_tables_affine", cached)
+
+
+@pytest.fixture(scope="module")
+def ladder_steps():
+    """The stacked-ladder case's prover and step output, which the scan
+    carries test decodes again (a ladder step takes half a minute here)."""
+    return {}
+
+
 @pytest.mark.parametrize("name", list(OPT_INS))
-def test_opt_in_matches_reference(crs, name, monkeypatch):
+def test_opt_in_matches_reference(crs, ladder_steps, limb_tables, name, monkeypatch):
     env, strategy, tables, k1, k2 = OPT_INS[name]
+    _share_tables(monkeypatch, limb_tables)
     for var, val in env.items():
         monkeypatch.setenv(var, val)
     bp = BatchProver(crs.engine, crs.params, MiMCDemo(crs.constants, 0, 0), msm_strategy=strategy,
@@ -105,6 +142,25 @@ def test_opt_in_matches_reference(crs, name, monkeypatch):
     # a step's limb multiplies are rns's: to_mont, the h(x) pipeline, std_from_mont
     assert calls["mul"] == 15 * bp.exp + 12
     assert bp.decode(*out) == crs.want
+    if name == "stacked-ladder":
+        ladder_steps["stacked"] = (bp, out)
+
+
+@pytest.mark.parametrize("shape,shard_exp", [((2, 2), None), ((1, 4), "0")], ids=["2x2", "1x4-sharded-ntt"])
+def test_mesh_matches_reference(crs, limb_tables, shape, shard_exp, monkeypatch):
+    _share_tables(monkeypatch, limb_tables)
+    if shard_exp is not None:
+        monkeypatch.setenv("BMT_SHARD_NTT_EXP", shard_exp)
+    mesh = make_mesh(4, shape=shape, devices=["cpu"] * 4)
+    bp = BatchProver(crs.engine, crs.params, MiMCDemo(crs.constants, 0, 0), mesh=mesh)
+    assert bp.msm_strategy == "table" and bp.mesh is mesh
+    assert [(n, k, c) for n, k, c, _ in bp.table_info()] == [
+        ("h", 32, 4), ("l", 32, 4), ("a", 32, 4), ("b1", 16, 4), ("b2", 16, 4)]
+    args = bp.encode_circuits([MiMCDemo(crs.constants, xl, xr) for xl, xr in crs.wit])
+    assert bp.decode(*bp.step(*args)) == crs.want
+    if shape[0] == 2:
+        with pytest.raises(ValueError, match="divide"):
+            bp.step(*(a[:1] for a in args))
 
 
 def _raw_limbs(f, vals):
@@ -158,16 +214,22 @@ def _vals(f, n, seed):
     return [0, 1, f.p - 1, f.p, 2 * f.p - 1] + [rng.randrange(2 * f.p) for _ in range(n - 5)]
 
 
-def test_scan_carries_h_pipeline_and_decode(crs, monkeypatch):
-    """h(x) of witness 0 and the decode of a ladder step's points under
-    BMT_CARRIES=scan equal the flat run's limbs and points."""
+def test_scan_carries_h_pipeline_and_decode(crs, ladder_steps, monkeypatch):
+    """h(x) of witness 0 and the decode of a (stacked) ladder step's points
+    under BMT_CARRIES=scan equal the flat run's limbs and points; the step
+    is the stacked-ladder case's where it ran."""
     eng = crs.engine
     prover = synthesize_witness(eng, MiMCDemo(crs.constants, *crs.wit[0]))
     m = 1 << (len(prover.a) - 1).bit_length()
     exp = m.bit_length() - 1
     abc = [fr.encode(list(v) + [0] * (m - len(v))) for v in (prover.a, prover.b, prover.c)]
-    bp = BatchProver(eng, crs.params, MiMCDemo(crs.constants, 0, 0), msm_strategy="ladder")
-    out = bp.step(*bp.encode_circuits([MiMCDemo(crs.constants, xl, xr) for xl, xr in crs.wit]))
+    if "stacked" in ladder_steps:
+        bp, out = ladder_steps["stacked"]
+    else:
+        monkeypatch.setenv("BMT_STACK_MSMS", "1")
+        bp = BatchProver(eng, crs.params, MiMCDemo(crs.constants, 0, 0), msm_strategy="ladder")
+        monkeypatch.delenv("BMT_STACK_MSMS")
+        out = bp.step(*bp.encode_circuits([MiMCDemo(crs.constants, xl, xr) for xl, xr in crs.wit]))
     flat_h = _h_pipeline(fr, eng.fr_host, exp)(*abc)
     flat_proofs = bp.decode(*out)
     monkeypatch.setenv("BMT_CARRIES", "scan")

@@ -5,9 +5,10 @@ BMT_TABLE_SIGNED=0), pippenger and flatpip (pippenger_c=4).  Each batch
 equals the reference's `create_random_proof` of the same witnesses, and its
 step and decode make the limb multiplies (LimbField.mul, the limb
 Montgomery kernel on the card) that chip_smoke.k4_counts derives.  "auto"
-resolves to ladder on a CPU engine; `mesh=` (multi-GPU, not ported) raises
-NotImplementedError, and BMT_STACK_MSMS=1 with rns, table or flatpip (which
-the reference's stacked path cannot run) raises ValueError."""
+resolves to ladder on a CPU engine; `mesh=` with a strategy other than
+table raises ValueError (the mesh cases are in tests/test_torch_opt_ins.py),
+and BMT_STACK_MSMS=1 with rns, table or flatpip (which the reference's
+stacked path cannot run) raises ValueError."""
 
 import random
 from types import SimpleNamespace
@@ -24,7 +25,7 @@ from bellman_mpc_tpu_torch import interop
 from bellman_mpc_tpu_torch.fields.bls12_381 import fp
 from bellman_mpc_tpu_torch.fields.limb import LimbField
 from bellman_mpc_tpu_torch.models import MiMCDemo
-from bellman_mpc_tpu_torch.parallel import BatchProver
+from bellman_mpc_tpu_torch.parallel import BatchProver, make_mesh
 
 torch.set_num_threads(1)  # tiny CPU tensors: threads only contend with the other test workers
 
@@ -59,8 +60,10 @@ def test_auto_and_unported_opt_ins(crs, monkeypatch):
     bp = _prover(crs)
     assert bp.msm_strategy == "ladder" and bp.table_info() == []
     assert not (bp.glv or bp.merge_g1 or bp.stack_msms)
-    with pytest.raises(NotImplementedError, match="A5"):
-        _prover(crs, msm_strategy="table", mesh=object())
+    mesh = make_mesh(4, devices=["cpu"] * 4)
+    for strategy in ("ladder", "rns", "pippenger"):
+        with pytest.raises(ValueError, match="table strategy"):
+            _prover(crs, msm_strategy=strategy, mesh=mesh)
     monkeypatch.setenv("BMT_STACK_MSMS", "1")
     for strategy in ("rns", "table", "flatpip"):
         with pytest.raises(ValueError, match="BMT_STACK_MSMS"):
