@@ -71,7 +71,7 @@ def jax_free_run(tmp_path_factory):
     yield proc, tmp
     if proc.poll() is None:
         proc.kill()
-        proc.wait()
+        proc.wait(timeout=60)
 
 
 @pytest.fixture(scope="module")
