@@ -1,7 +1,7 @@
-// Montgomery multiply of 11-bit-limb field elements, on 32-bit words, for
-// Hopper (sm_90a).
+// Montgomery products of 11-bit-limb field elements, on 32-bit words, for
+// Hopper (sm_90a): K4 the product fused, K5 and K6 its two halves.
 //
-// Replaces the Pallas TPU kernel K4 of bellman_mpc_tpu/ops/pallas_kernels.py:
+// K4 replaces the TPU kernel K4 of bellman_mpc_tpu/ops/pallas_kernels.py:
 //   bmt_mont_mul <- _jit_mont_mul_pallas (body _mont_mul_block).
 // Every LimbField.mul of the port on a CUDA tensor launches it
 // (ops/mont_kernels.py): the h(x) pipeline's NTT stages, scalings and
@@ -9,7 +9,7 @@
 // decode.  The plain PyTorch version is LimbField.mul_plain; raw output
 // limbs equal it.
 //
-// The function.  a, b are lazy (< 2p) with canonical 11-bit digits, L of
+// K4's function.  a, b are lazy (< 2p) with canonical 11-bit digits, L of
 // them; R = 2^(11L).  The plain version (and the reference) computes
 //   out = the canonical 11-bit digits of (a b + M p) / R,
 //   M = -a b p^-1 mod R, taken in [0, R), with no final subtraction:
@@ -48,6 +48,64 @@
 // Operands are read through a limb stride and a two-level lane index with
 // strides (0 broadcasts), so the call sites' views and broadcast constants
 // need no copy; the output is a contiguous (L, n) tensor.
+//
+// The lazy Montgomery columns (fields/limb.py LazyCols): the same product
+// split in two, with integer column arithmetic between the halves.
+//
+//   bmt_lazy_cols (K5), lazy_cols_kernel<L>: the schoolbook product columns
+//     of two (L, n) digit tensors; plain version LimbField.mul_cols.
+//   bmt_lazy_redc (K6), lazy_redc_kernel<L>: one Montgomery reduction of
+//     (2L, n) non-negative int32 columns; plain version
+//     LimbField.lazy_redc_plain (the carry folds of _reduce_plan, then
+//     LimbField.redc_cols).
+// K4 is the product fused; K5 and K6 are its split form, for the callers
+// that add, subtract and scale columns before one reduction.  All three
+// share the operand geometry, the modulus words and the final step.
+//
+// No TPU kernel is replaced by K5 or K6: the reference leaves the lazy
+// columns to XLA's fusion, which makes each product and each reduction one fused
+// program.  Eager PyTorch ran them as Python loops over the L limbs, about
+// 220 tensor operations per stacked product and 550 per reduction at
+// L = 36, each a tiny kernel of a few thousand lanes: the host's launch rate
+// bounded every curve operation on the limb path (the proof assembly, the
+// CRS ladders, the table build's bucket chains, the pairing's tower).
+//
+// K5's function: cols[c] = sum_{i+j=c} a_i b_j, column 2L - 1 zero, in
+// 32-bit arithmetic that wraps as the plain int32 version does (the host's
+// _product_hi proves that no column passes 2^31 - 1, also for operands
+// that are raw digit sums).
+//
+// K6's function.  T = sum_c cols[c] 2^(11c), 0 <= T < 3pR (the host's
+// _reduce_plan proves T < pR, or 3pR for wide reductions; R = 2^(11L)).
+// Out: the canonical 11-bit digits of (T + M p) / R, M in [0, R) the unique
+// value with T + M p = 0 mod R.  The plain version's word-by-word REDC picks
+// L 11-bit digits m_i, so its M lies in [0, R) and is THAT value; its folds
+// and carry passes keep the value, which is below 4p < R.  So any exact
+// reduction to the same R gives the same limbs.  This kernel:
+//   1. one carry pass over the 2L columns (column + carry < 2^31 + 2^21),
+//      packing the canonical digits of T into TW = ceil(22L / 32) words;
+//   2. S = floor(11L / 32) whole-word REDC rows: m = t_i (-p^-1) mod 2^32,
+//      t += m p 2^(32 i), the row's carry and a one-bit carry that moves
+//      up one word per row;
+//   3. K4's final step over the remaining 11L - 32S bits (Fr 8, Fp 12, the
+//      mock field's L = 2: all 22, S = 0), so M lies in [0, R);
+//   4. the L digits of t >> 11L.
+// t <= T + M p < 4pR < 2^(22L) all along, so TW words hold it and the top
+// word never carries out.
+//
+// What bounds them on this card: the launch and one lane's latency.  The
+// proof step calls them at about 1.5k lanes (k stacked products of a few
+// points per proof), where every lane has its own thread and a few dozen
+// 64-thread blocks cover the call; at the CRS ladders' and the table
+// build's widths (10^4 to 10^6 lanes) the integer work does: L^2 32-bit
+// multiply-adds per lane in K5 (1296 at L = 36) and S N 32x32-bit products
+// with their carries in K6 (144 at L = 36).  The essential traffic is small
+// (K5: 2L words in, 2L out; K6: 2L in, L out, per lane).  The design: one
+// thread per lane, limb-major (column c of lane i at c n + i) so that
+// neighbouring threads read and write neighbouring words; operands read in
+// place through a limb stride and a two-level lane index, as K4's; K5 holds
+// both operands in registers and stores each column as soon as it is
+// summed, K6 holds T in TW registers; nothing goes through shared memory.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -72,11 +130,13 @@ struct Operand {
 
 template <int L>
 struct Shape {
-  static constexpr int S = 11 * L / 32;               // whole-word CIOS steps
+  static constexpr int S = 11 * L / 32;               // whole-word CIOS / REDC steps
   static constexpr int R_BITS = 11 * L - 32 * S;      // the final step's bits
-  static constexpr int N = S > 0 ? S : 1;             // words of a value below 2p
+  static constexpr int N = S > 0 ? S : 1;             // words of p, and of a value below 2p
+  static constexpr int TW = (22 * L + 31) / 32;       // words of a value below 2^(22L)
   static_assert(R_BITS > 0 && R_BITS < 32, "the final step takes 1-31 bits");
   static_assert(S == N || (S == 0 && N == 1), "whole-word steps cover the input words");
+  static_assert(S + N == TW - 1, "K6's final carry lands in its top word");
 };
 
 __device__ __forceinline__ long long lane_offset(const Operand& o, int lane) {
@@ -107,6 +167,22 @@ __device__ __forceinline__ uint32_t mac_row(uint32_t (&x)[N], const uint32_t (&a
   for (int k = 0; k < N; ++k) {
     const uint64_t s = (uint64_t)a[k] * b + x[k] + c;
     x[k] = (uint32_t)s;
+    c = (uint32_t)(s >> 32);
+  }
+  return c;
+}
+
+// the final step over RB bits at word O: t += m' p 2^(32 O),
+// m' = -t_O p^-1 mod 2^RB, which clears bits 32 O .. 32 O + RB - 1 of t;
+// returns the carry out of word O + N - 1
+template <int N, int RB, int O, int W>
+__device__ __forceinline__ uint32_t final_step(uint32_t (&t)[W], const Modulus& mod) {
+  const uint32_t mr = (t[O] * mod.nr) & ((1u << RB) - 1);
+  uint32_t c = 0;
+#pragma unroll
+  for (int k = 0; k < N; ++k) {
+    const uint64_t s = (uint64_t)mr * mod.p[k] + t[O + k] + c;
+    t[O + k] = (uint32_t)s;
     c = (uint32_t)(s >> 32);
   }
   return c;
@@ -153,16 +229,8 @@ mont_mul_kernel(const int* __restrict__ a, const int* __restrict__ b, int* __res
     }
   }
 
-  // the final step over RB bits: t += m' p, then t >>= RB
-  const uint32_t mr = (t[0] * mod.nr) & ((1u << RB) - 1);
-  uint32_t c = 0;
-#pragma unroll
-  for (int k = 0; k < N; ++k) {
-    const uint64_t s = (uint64_t)mr * mod.p[k] + t[k] + c;
-    t[k] = (uint32_t)s;
-    c = (uint32_t)(s >> 32);
-  }
-  t[N] += c;
+  // the final step over RB bits, then t >>= RB
+  t[N] += final_step<N, RB, 0>(t, mod);
   uint32_t r[N];
 #pragma unroll
   for (int k = 0; k < N; ++k) r[k] = (t[k] >> RB) | (t[k + 1] << (32 - RB));
@@ -177,51 +245,174 @@ mont_mul_kernel(const int* __restrict__ a, const int* __restrict__ b, int* __res
 }
 
 template <int L>
-int wave_lanes() {
-  int dev = 0, sms = 0, per_sm = 0;
-  cudaGetDevice(&dev);
-  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, mont_mul_kernel<L>, BLOCK, 0);
-  return sms * per_sm * BLOCK;
+__global__ void __launch_bounds__(BLOCK)
+lazy_cols_kernel(const int* __restrict__ a, const int* __restrict__ b, int* __restrict__ out,
+                 const Operand oa, const Operand ob, int n) {
+  const int lane = blockIdx.x * BLOCK + threadIdx.x;
+  if (lane >= n) return;
+  const int* pa = a + lane_offset(oa, lane);
+  const int* pb = b + lane_offset(ob, lane);
+  uint32_t x[L], y[L];
+#pragma unroll
+  for (int l = 0; l < L; ++l) {
+    x[l] = (uint32_t)__ldg(pa + l * oa.ls);
+    y[l] = (uint32_t)__ldg(pb + l * ob.ls);
+  }
+#pragma unroll
+  for (int c = 0; c < 2 * L - 1; ++c) {
+    uint32_t s = 0;
+#pragma unroll
+    for (int i = 0; i < L; ++i)
+      if (c - i >= 0 && c - i < L) s += x[i] * y[c - i];  // decided at compile time
+    out[(size_t)c * n + lane] = (int)s;
+  }
+  out[(size_t)(2 * L - 1) * n + lane] = 0;
 }
 
-}  // namespace
+template <int L>
+__global__ void __launch_bounds__(BLOCK)
+lazy_redc_kernel(const int* __restrict__ cols, int* __restrict__ out, const Modulus mod,
+                 const Operand oc, int n) {
+  using Sh = Shape<L>;
+  constexpr int N = Sh::N, S = Sh::S, RB = Sh::R_BITS, TW = Sh::TW;
+  const int lane = blockIdx.x * BLOCK + threadIdx.x;
+  if (lane >= n) return;
+  const int* src = cols + lane_offset(oc, lane);
 
-// Lanes that one full wave of K4's blocks covers on the current device (SMs x
-// resident blocks per SM x 64); 0 for an L that is not instantiated.
-extern "C" int bmt_mont_mul_wave_lanes(int L) {
-  switch (L) {
-    case 2: return wave_lanes<2>();
-    case 24: return wave_lanes<24>();
-    case 36: return wave_lanes<36>();
-    default: return 0;
+  uint32_t t[TW];  // T, then T + M p, in TW words
+#pragma unroll
+  for (int k = 0; k < TW; ++k) t[k] = 0;
+  uint32_t carry = 0;
+#pragma unroll
+  for (int c = 0; c < 2 * L; ++c) {
+    const uint32_t v = (uint32_t)__ldg(src + c * oc.ls) + carry;
+    const uint32_t d = v & LIMB_MASK;
+    carry = v >> 11;
+    const int k = 11 * c / 32, sh = 11 * c % 32;
+    t[k] |= d << sh;
+    if (sh > 21 && k + 1 < TW) t[k + 1] |= d >> (32 - sh);
+  }
+
+  uint32_t top = 0;  // the carry out of word i + N, owed to word i + N + 1
+#pragma unroll
+  for (int i = 0; i < S; ++i) {  // t += m p 2^(32 i), which clears word i
+    const uint32_t m = t[i] * mod.n0;
+    uint32_t c = 0;
+#pragma unroll
+    for (int k = 0; k < N; ++k) {
+      const uint64_t s = (uint64_t)m * mod.p[k] + t[i + k] + c;
+      t[i + k] = (uint32_t)s;
+      c = (uint32_t)(s >> 32);
+    }
+    const uint64_t s = (uint64_t)t[i + N] + c + top;
+    t[i + N] = (uint32_t)s;
+    top = (uint32_t)(s >> 32);
+  }
+
+  // K4's final step at word S, which clears t's low 11L bits
+  t[S + N] += final_step<N, RB, S>(t, mod) + top;
+
+#pragma unroll
+  for (int l = 0; l < L; ++l) {
+    const int q = 11 * (L + l), k = q / 32, sh = q % 32;
+    uint32_t v = t[k] >> sh;
+    if (sh > 21 && k + 1 < TW) v |= t[k + 1] << (32 - sh);
+    out[(size_t)l * n + lane] = (int)(v & LIMB_MASK);
   }
 }
 
-// Plain C entry point: launches on `stream`, does not synchronise, and
-// returns cudaGetLastError() right after its launch (0 and no launch when
-// n == 0).  consts: host words [N, p_0 .. p_{N-1}, -p^-1 mod 2^32,
-// -p^-1 mod 2^(11L-32S)]; geo: host [a: ls, n0, s1, s0, b: ls, n0, s1, s0];
-// L must be one of the instantiated widths (2, 24, 36).
+template <typename Kernel>
+int wave_lanes(Kernel kernel) {
+  int dev = 0, sms = 0, per_sm = 0;
+  cudaGetDevice(&dev);
+  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, BLOCK, 0);
+  return sms * per_sm * BLOCK;
+}
+
+// consts -> mod for an instantiated L whose word count N matches consts[0];
+// false otherwise
+bool read_modulus(const unsigned* consts, int L, Modulus& mod) {
+  const int N = L == 2 ? Shape<2>::N : L == 24 ? Shape<24>::N : L == 36 ? Shape<36>::N : -1;
+  if (N < 0 || (int)consts[0] != N) return false;
+  for (int k = 0; k < N; ++k) mod.p[k] = consts[1 + k];
+  mod.n0 = consts[1 + N];
+  mod.nr = consts[2 + N];
+  return true;
+}
+
+Operand read_operand(const long long* g) { return {g[0], g[1], g[2], g[3]}; }
+
+}  // namespace
+
+// Lanes that one full wave of each kernel's blocks covers on the current
+// device (SMs x resident blocks per SM x 64); 0 for an L that is not
+// instantiated.
+#define BMT_WAVE_LANES(name, kernel)                 \
+  extern "C" int name(int L) {                       \
+    switch (L) {                                     \
+      case 2: return wave_lanes(kernel<2>);          \
+      case 24: return wave_lanes(kernel<24>);        \
+      case 36: return wave_lanes(kernel<36>);        \
+      default: return 0;                             \
+    }                                                \
+  }
+BMT_WAVE_LANES(bmt_mont_mul_wave_lanes, mont_mul_kernel)
+BMT_WAVE_LANES(bmt_lazy_cols_wave_lanes, lazy_cols_kernel)
+BMT_WAVE_LANES(bmt_lazy_redc_wave_lanes, lazy_redc_kernel)
+
+// Plain C entry points: each launches on `stream`, does not synchronise,
+// and returns cudaGetLastError() right after its launch (0 and no launch
+// when n == 0).  consts: host words [N, p_0 .. p_{N-1}, -p^-1 mod 2^32,
+// -p^-1 mod 2^(11L-32S)] (ops/mont_kernels.word_consts); geo: host
+// [ls, n0, s1, s0] per operand (a, then b); L must be one of the
+// instantiated widths (2, 24, 36).
 
 extern "C" int bmt_mont_mul(const int* a, const int* b, int* out, const unsigned* consts,
                             const long long* geo, int L, int n, void* stream) {
   if (n == 0) return 0;
-  const int N = L == 2 ? Shape<2>::N : L == 24 ? Shape<24>::N : L == 36 ? Shape<36>::N : -1;
-  if (N < 0 || n < 0 || (int)consts[0] != N || geo[1] <= 0 || geo[5] <= 0)
-    return (int)cudaErrorInvalidValue;
   Modulus mod = {};
-  for (int k = 0; k < N; ++k) mod.p[k] = consts[1 + k];
-  mod.n0 = consts[1 + N];
-  mod.nr = consts[2 + N];
-  const Operand oa = {geo[0], geo[1], geo[2], geo[3]};
-  const Operand ob = {geo[4], geo[5], geo[6], geo[7]};
+  if (n < 0 || !read_modulus(consts, L, mod) || geo[1] <= 0 || geo[5] <= 0)
+    return (int)cudaErrorInvalidValue;
+  const Operand oa = read_operand(geo), ob = read_operand(geo + 4);
   const dim3 grid((n + BLOCK - 1) / BLOCK);
   cudaStream_t s = (cudaStream_t)stream;
   switch (L) {
     case 2: mont_mul_kernel<2><<<grid, BLOCK, 0, s>>>(a, b, out, mod, oa, ob, n); break;
     case 24: mont_mul_kernel<24><<<grid, BLOCK, 0, s>>>(a, b, out, mod, oa, ob, n); break;
     case 36: mont_mul_kernel<36><<<grid, BLOCK, 0, s>>>(a, b, out, mod, oa, ob, n); break;
+  }
+  return (int)cudaGetLastError();
+}
+
+extern "C" int bmt_lazy_cols(const int* a, const int* b, int* out, const long long* geo, int L, int n,
+                             void* stream) {
+  if (n == 0) return 0;
+  if (n < 0 || geo[1] <= 0 || geo[5] <= 0) return (int)cudaErrorInvalidValue;
+  const Operand oa = read_operand(geo), ob = read_operand(geo + 4);
+  const dim3 grid((n + BLOCK - 1) / BLOCK);
+  cudaStream_t s = (cudaStream_t)stream;
+  switch (L) {
+    case 2: lazy_cols_kernel<2><<<grid, BLOCK, 0, s>>>(a, b, out, oa, ob, n); break;
+    case 24: lazy_cols_kernel<24><<<grid, BLOCK, 0, s>>>(a, b, out, oa, ob, n); break;
+    case 36: lazy_cols_kernel<36><<<grid, BLOCK, 0, s>>>(a, b, out, oa, ob, n); break;
+    default: return (int)cudaErrorInvalidValue;
+  }
+  return (int)cudaGetLastError();
+}
+
+extern "C" int bmt_lazy_redc(const int* cols, int* out, const unsigned* consts, const long long* geo,
+                             int L, int n, void* stream) {
+  if (n == 0) return 0;
+  Modulus mod = {};
+  if (n < 0 || !read_modulus(consts, L, mod) || geo[1] <= 0) return (int)cudaErrorInvalidValue;
+  const Operand oc = read_operand(geo);
+  const dim3 grid((n + BLOCK - 1) / BLOCK);
+  cudaStream_t s = (cudaStream_t)stream;
+  switch (L) {
+    case 2: lazy_redc_kernel<2><<<grid, BLOCK, 0, s>>>(cols, out, mod, oc, n); break;
+    case 24: lazy_redc_kernel<24><<<grid, BLOCK, 0, s>>>(cols, out, mod, oc, n); break;
+    case 36: lazy_redc_kernel<36><<<grid, BLOCK, 0, s>>>(cols, out, mod, oc, n); break;
   }
   return (int)cudaGetLastError();
 }

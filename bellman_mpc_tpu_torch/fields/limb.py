@@ -19,7 +19,9 @@ at every call (`_flat_carries`), so it can be switched inside a process.
 Every result is the unique canonical-digit representation of the same
 value, so both strategies, here and in the reference, agree limb for limb.
 `LimbField.mul` is the limb Montgomery kernel on a CUDA tensor under either
-strategy; only the carry paths outside the multiply change.
+strategy; only the carry paths outside the multiply change.  Likewise the
+lazy columns' product (`lazy_mul_many`) and reduction (`LazyCols.reduce`)
+are one kernel launch each on a CUDA tensor (ops/mont_kernels.py).
 
 Constants live on the CPU and are copied to a tensor's device on first use
 there (no module-level device state).  The lazy columns' bound proofs are
@@ -38,7 +40,7 @@ import numpy as np
 import torch
 
 from ..ops.kernel_lib import plain_counts
-from ..ops.mont_kernels import mont_mul
+from ..ops.mont_kernels import lazy_cols, lazy_redc, mont_mul
 
 LIMB_BITS = 11
 LIMB_MASK = (1 << LIMB_BITS) - 1
@@ -276,6 +278,20 @@ class LimbField:
             plain_counts["mont_mul"] += 1
         return self.redc_cols(self.mul_cols(a, b))
 
+    def lazy_cols_plain(self, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+        """K5's plain version: `mul_cols`."""
+        if a.is_cuda or b.is_cuda:
+            plain_counts["lazy_cols"] += 1
+        return self.mul_cols(a, b)
+
+    def lazy_redc_plain(self, cols: torch.Tensor, plan: Tuple[int, int]) -> torch.Tensor:
+        """K6's plain version: `_reduce_plan`'s carry folds, then `redc_cols`
+        with its fold steps after."""
+        if cols.is_cuda:
+            plain_counts["lazy_redc"] += 1
+        folds, steps = plan
+        return self.redc_cols(self._fold(cols, folds), fold_steps=steps)
+
     def square(self, a: torch.Tensor) -> torch.Tensor:
         return self.mul(a, a)
 
@@ -392,7 +408,7 @@ class LimbField:
             dmax_pairs = [(self._dmax_lazy, self._dmax_lazy)] * k
         lhs = torch.stack([a for a, _ in pairs], dim=1)
         rhs = torch.stack([b for _, b in pairs], dim=1)
-        cols = self.mul_cols(lhs, rhs)  # (2L, k, *B)
+        cols = lazy_cols(self, lhs, rhs)  # (2L, k, *B): K5 on a CUDA tensor
         return [LazyCols(self, cols[:, i], _product_hi(tuple(da), tuple(db)))
                 for i, (da, db) in enumerate(dmax_pairs)]
 
@@ -499,13 +515,10 @@ class LazyCols:
         """ONE Montgomery reduction -> lazy element (<2p, canonical digits),
         with the reference's host-side proof obligations (value bound, int32
         REDC growth, fold schedule)."""
-        folds, steps = _reduce_plan(self.f, self.hi, wide)
-        lc = self
-        for _ in range(folds):
-            lc = lc.fold()
+        plan = _reduce_plan(self.f, self.hi, wide)
         # wide=True admits T < 3pR (REDC output < 4p); like the reference,
         # no conditional subtraction follows, so raw limbs stay identical.
-        return self.f.redc_cols(lc.cols, fold_steps=steps)
+        return lazy_redc(self.f, self.cols, plan)  # K6 on a CUDA tensor
 
 
 # ------------------------------------------------ host-side bound proofs

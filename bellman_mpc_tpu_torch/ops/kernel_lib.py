@@ -7,8 +7,9 @@ The library is built at first use and rebuilt whenever a source is newer
 than it, so a library from before a source changed is never loaded.
 
 `launch_counts` has one entry per kernel wrapper (ops/fold_kernels.py,
-ops/mont_kernels.py); a wrapper adds one where it launches its kernel and
-nowhere else, so a run can show that its path went through the kernels.
+ops/mont_kernels.py); a wrapper adds one where it
+launches its kernel and nowhere else, so a run can show that its path went
+through the kernels.
 """
 
 from __future__ import annotations
@@ -32,10 +33,12 @@ _lib = None
 
 launch_counts: Dict[str, int] = {
     "mont_mul": 0, "rns_mul_many": 0, "rns_fold_window": 0, "rns_fold_window_g2": 0,
+    "lazy_cols": 0, "lazy_redc": 0,
 }
-# calls of a kernel's plain version on a CUDA tensor (LimbField.mul_plain
-# counts here), so a run can show that its path took none of them
-plain_counts: Dict[str, int] = {"mont_mul": 0}
+# calls of a kernel's plain version on a CUDA tensor (LimbField.mul_plain,
+# lazy_cols_plain and lazy_redc_plain count here), so a run can show that
+# its path took none of them
+plain_counts: Dict[str, int] = {"mont_mul": 0, "lazy_cols": 0, "lazy_redc": 0}
 
 
 def reset_launch_counts() -> None:
@@ -118,6 +121,10 @@ ARGTYPES = {
     "bmt_fold_g1_wave_lanes": [],
     "bmt_fold_g2_wave_lanes": [],
     "bmt_rns_mul_wave_lanes": [],
+    "bmt_lazy_cols": [_P, _P, _P, _P, _I, _I, _P],
+    "bmt_lazy_redc": [_P, _P, _P, _P, _I, _I, _P],
+    "bmt_lazy_cols_wave_lanes": [_I],
+    "bmt_lazy_redc_wave_lanes": [_I],
 }
 
 

@@ -20,20 +20,27 @@ Phases (each raises on failure; nothing is caught):
      and the mock field at 1, 13 and one past a full wave of lanes with
      the edge operands 0, 1, p-1, p, 2p-1, at the main path's (24, 8192),
      (24, 16384) and (36, 16), and on NTT-stage views and broadcast
-     constants (check_mont_mul); time K3 and K1 at 16384 lanes, K2 at 8192
-     lanes and K4 at (24, 8192) and (24, 16384) beside their plain versions;
+     constants (check_mont_mul); K5 and K6 (the lazy columns) against
+     their plain versions on Fp, Fr and the mock field at 1 and 13 lanes and
+     one past a full wave, on stacked products and on reductions with and
+     without folds before the REDC (check_lazy); time K3 and K1 at 16384
+     lanes, K2 at 8192 lanes, K4 at (24, 8192) and (24, 16384) and K5 and
+     K6 at (36, 1536) and (36, 131072) beside their plain versions;
   4. setup: ffi.test_create_parameters(), the MiMC-322 CRS (constants seed
      42) on its default engine, Bls12Engine() on the card, then
      BatchProver(msm_strategy="rns") with its padded RNS tables;
   5. prove_batch on B=16 random witnesses, launch counts checked (K1 132
      times, K2 33 times, K4 once for every limb multiply: k4_counts derives
      162 per step and 1847 per decode; the plain multiply never on a CUDA
-     tensor); the 16 proofs verified on the card by one BatchVerifier.verify,
+     tensor; K5 once per LimbField.lazy_mul_many call and K6 once per
+     LazyCols.reduce call, both counted by `counted`, and no plain lazy call
+     on a CUDA tensor); the 16 proofs verified on the card by one BatchVerifier.verify,
      proof 0 by verify_proof, a batch with one wrong public input rejected
      (each with K4's count from pairing_k4_counts, no plain multiply, no K1
      or K2), and the first 4 again by the host oracle's loop (a CPU
      engine), timed;
-  6. timings: one step and one decode counted apart, table build, median
+  6. timings: one step and one decode counted apart (K4 as k4_counts, K5
+     and K6 as in phase 5, their sums phase 5's), table build, median
      step of 3, proofs/s, decode seconds, and one fold window's kernel time
      beside its plain version's at the main path's shapes (gathered from the
      real tables);
@@ -141,12 +148,18 @@ SOURCES = {
     "rns_mul_many": "bellman_mpc_tpu_torch/csrc/fold_kernels.cu",
     "rns_fold_window": "bellman_mpc_tpu_torch/csrc/fold_kernels.cu",
     "rns_fold_window_g2": "bellman_mpc_tpu_torch/csrc/fold_kernels.cu",
+    "lazy_cols": "bellman_mpc_tpu_torch/csrc/mont_mul.cu",
+    "lazy_redc": "bellman_mpc_tpu_torch/csrc/mont_mul.cu",
 }
+# the TPU kernel each replaces; K5 and K6 have no TPU counterpart (the
+# reference leaves the lazy columns to XLA's fusion)
 REPLACES = {
     "mont_mul": "bellman_mpc_tpu/ops/pallas_kernels.py:87",
     "rns_mul_many": "bellman_mpc_tpu/ops/pallas_kernels.py:268",
     "rns_fold_window": "bellman_mpc_tpu/ops/pallas_kernels.py:470",
     "rns_fold_window_g2": "bellman_mpc_tpu/ops/pallas_kernels.py:663",
+    "lazy_cols": "none",
+    "lazy_redc": "none",
 }
 # H100 SXM device memory rate and dense int8 tensor-core rate (NVIDIA data
 # sheet), and 32-bit integer instructions per clock per SM at compute
@@ -499,6 +512,85 @@ def check_mont_mul(device, rng: random.Random):
     return out
 
 
+# Fp lanes of the lazy kernels timed in phase 3: a stacked product or
+# reduction of six coordinates of a B = 256 step's proof assembly, and a
+# CRS ladder's or bucket chain's width
+LAZY_TIMED_LANES = (1536, 131072)
+
+
+def lazy_ops(f):
+    """(K5, K6) 32-bit integer instructions per lane, the least each
+    function needs: K5 L^2 multiply-adds; K6 a carry pass and packing over
+    the 2L columns (5 per column), REDC over s 32-bit words (s^2 word
+    products of m p, each a low and a high multiply-add and two carry adds,
+    and s products for m) and the L output digits (3 each)."""
+    s = -(-(2 * f.p).bit_length() // 32)
+    return f.L * f.L, 10 * f.L + 4 * s * s + s + 3 * f.L
+
+
+def lazy_bounds(int_rate: float, f, lanes: int) -> dict:
+    """(bound_ms, bound_by) of K5 and K6 at (L, lanes): K5 reads 2L and
+    writes 2L words per lane, K6 reads 2L and writes L, or their operations."""
+    k5_ops, k6_ops = lazy_ops(f)
+    return {"lazy_cols": bound(4 * f.L * 4 * lanes, k5_ops * lanes, int_rate),
+            "lazy_redc": bound(3 * f.L * 4 * lanes, k6_ops * lanes, int_rate)}
+
+
+def check_lazy(device, rng: random.Random):
+    """Phase 3, K5 and K6 (ops/mont_kernels.py): lazy_cols against
+    LimbField.mul_cols on three stacked products (lazy_limbs operands and
+    their digit sums), lazy_redc against LimbField.lazy_redc_plain on the
+    reduction of 3 t0 + (t2 - t0 - t1) and on a scaling of t0 to the int32
+    edge (a plan with folds before the REDC), on Fp, Fr and the mock field at
+    1 and 13 lanes and one lane past a full wave of each kernel's blocks,
+    and on Fp at LAZY_TIMED_LANES; times both at those Fp widths (20 calls
+    per captured graph), eagerly and their plain versions."""
+    import torch
+
+    from bellman_mpc_tpu_torch.fields.bls12_381 import fp, fr
+    from bellman_mpc_tpu_torch.fields.limb import _reduce_plan
+    from bellman_mpc_tpu_torch.fields.mock import mock
+    from bellman_mpc_tpu_torch.ops.mont_kernels import lazy_cols, lazy_redc, wave_lanes
+
+    def inputs(f, n):
+        a, b, c, d = (lazy_limbs(f, n, rng, device) for _ in range(4))
+        dm = f._dmax_lazy
+        t0, t1, t2 = f.lazy_mul_many([(a, b), (c, d), (a + c, b + d)],
+                                     [(dm, dm), (dm, dm), (tuple(2 * x for x in dm),) * 2])
+        value = sum(h << (11 * i) for i, h in enumerate(t0.hi))
+        edge = t0.scale(min(((1 << 31) - 1) // max(t0.hi), (f.p * f.R - 1) // value))
+        return (torch.stack([a, c, a + c], dim=1), torch.stack([b, d, b + d], dim=1),
+                [(lc.cols.contiguous(), _reduce_plan(f, lc.hi, False)) for lc in (3 * t0 + (t2 - t0 - t1), edge)])
+
+    checked = []
+    for name, f, more in (("Fp", fp, LAZY_TIMED_LANES), ("Fr", fr, ()), ("mock", mock, ())):
+        for n in (1, 13, wave_lanes(f.L, "lazy_cols") + 1, wave_lanes(f.L, "lazy_redc") + 1) + more:
+            lhs, rhs, reds = inputs(f, n)
+            err = max_abs_err(lazy_cols(f, lhs, rhs), f.mul_cols(lhs, rhs))
+            err = max([err] + [max_abs_err(lazy_redc(f, cols, plan), f.lazy_redc_plain(cols, plan))
+                               for cols, plan in reds])
+            assert err == 0, f"K5 or K6 disagrees with its plain version at {name} ({f.L}, {n}): {err}"
+            checked.append(f"{name} ({f.L}, {n}) plans {[plan for _, plan in reds]}")
+    log(f"K5 lazy_cols, K6 lazy_redc: bit-exact at {len(checked)} cases: " + "; ".join(checked))
+    int_rate = int32_ops_per_s()
+    out = {"max_abs_err": 0, "cases": checked, "timed": {}}
+    for n in LAZY_TIMED_LANES:
+        lhs, rhs, reds = inputs(fp, n)
+        cols, plan = reds[0]
+        bounds = lazy_bounds(int_rate, fp, n)
+        out["timed"][n] = {
+            "lazy_cols": dict(ms=graph_time_ms(lambda: lazy_cols(fp, lhs, rhs), 20, 20),
+                              eager_ms=cuda_time_ms(lambda: lazy_cols(fp, lhs, rhs), 50),
+                              plain_ms=cuda_time_ms(lambda: fp.mul_cols(lhs, rhs), 5),
+                              bound_ms=bounds["lazy_cols"][0], bound_by=bounds["lazy_cols"][1]),
+            "lazy_redc": dict(ms=graph_time_ms(lambda: lazy_redc(fp, cols, plan), 20, 20),
+                              eager_ms=cuda_time_ms(lambda: lazy_redc(fp, cols, plan), 50),
+                              plain_ms=cuda_time_ms(lambda: fp.lazy_redc_plain(cols, plan), 5),
+                              bound_ms=bounds["lazy_redc"][0], bound_by=bounds["lazy_redc"][1]),
+        }
+    return out
+
+
 def inv_muls(f) -> int:
     """Multiplies of LimbField.inv: pow_const(p - 2) squares once per bit and
     multiplies once per set bit."""
@@ -560,8 +652,9 @@ def pairing_k4_counts() -> dict:
 
 
 def check_no_fold(counts: dict, what: str) -> None:
-    """No plain multiply on the card and no fold or RNS kernel."""
-    assert counts["mont_mul_plain"] == 0, (what, counts)
+    """No plain multiply or lazy column call on the card and no fold or RNS
+    kernel."""
+    assert counts["mont_mul_plain"] == counts["lazy_plain"] == 0, (what, counts)
     assert counts["rns_fold_window"] == counts["rns_fold_window_g2"] == counts["rns_mul_many"] == 0, (
         what, counts)
 
@@ -1344,7 +1437,7 @@ def recorded(module, name: str, calls: list):
 
 
 def no_plain(counts: dict, what: str) -> None:
-    assert counts["mont_mul"] > 0 and counts["mont_mul_plain"] == 0, (what, counts)
+    assert counts["mont_mul"] > 0 and counts["mont_mul_plain"] == counts["lazy_plain"] == 0, (what, counts)
 
 
 def gadget_hashes() -> dict:
@@ -1752,14 +1845,44 @@ def time_steps(bp, args, n: int = 3):
 def counted(kl, fn):
     """Run fn() with every launch count set to 0 just before it; returns
     (result, the counts read just after, seconds).  `mont_mul_plain` counts
-    the calls of K4's plain version on a CUDA tensor."""
+    the calls of K4's plain version on a CUDA tensor, `lazy_plain` those of
+    K5's and K6's; `lazy_products` and `lazy_reductions` count the calls of
+    LimbField.lazy_mul_many and LazyCols.reduce (on any device), each of
+    which launches K5 or K6 once on a CUDA tensor."""
     import torch
 
+    from bellman_mpc_tpu_torch.fields.limb import LazyCols, LimbField
+
+    calls = {"lazy_products": 0, "lazy_reductions": 0}
+    spied = [(LimbField, "lazy_mul_many", "lazy_products"), (LazyCols, "reduce", "lazy_reductions")]
+    originals = [getattr(cls, name) for cls, name, _ in spied]
+
+    def spy(fn_, key):
+        def wrapped(*a, **kw):
+            calls[key] += 1
+            return fn_(*a, **kw)
+        return wrapped
+
+    for (cls, name, key), orig in zip(spied, originals):
+        setattr(cls, name, spy(orig, key))
     kl.reset_launch_counts()
     t0 = time.perf_counter()
-    out = fn()
-    torch.cuda.synchronize()
-    return out, dict(kl.launch_counts, mont_mul_plain=kl.plain_counts["mont_mul"]), time.perf_counter() - t0
+    try:
+        out = fn()
+        torch.cuda.synchronize()
+    finally:
+        for (cls, name, _), orig in zip(spied, originals):
+            setattr(cls, name, orig)
+    lazy_plain = kl.plain_counts["lazy_cols"] + kl.plain_counts["lazy_redc"]
+    return (out, dict(kl.launch_counts, mont_mul_plain=kl.plain_counts["mont_mul"], lazy_plain=lazy_plain, **calls),
+            time.perf_counter() - t0)
+
+
+def check_lazy_launches(counts: dict, what: str) -> None:
+    """A run on the card: one K5 per lazy product, one K6 per lazy reduction,
+    no plain lazy call."""
+    assert (counts["lazy_cols"] == counts["lazy_products"] and counts["lazy_redc"] == counts["lazy_reductions"]
+            and counts["lazy_plain"] == 0), (what, counts)
 
 
 def main() -> int:
@@ -1792,6 +1915,7 @@ def main() -> int:
     rng = random.Random(2024)
     checks = check_kernels(device, rng)
     checks["mont_mul"] = check_mont_mul(device, rng)
+    checks["lazy"] = check_lazy(device, rng)
     print("kernel checks: " + json.dumps(checks), flush=True)
     if kernels_only:
         return 0
@@ -1838,6 +1962,8 @@ def main() -> int:
     assert counts["rns_fold_window"] == 4 * W and counts["rns_fold_window_g2"] == W, counts
     assert counts["mont_mul"] == k4["step"] + k4["decode"] and counts["rns_mul_many"] == 0, (counts, k4)
     assert counts["mont_mul_plain"] == 0, counts
+    check_lazy_launches(counts, "prove_batch")
+    assert counts["lazy_cols"] > 0 and counts["lazy_redc"] > 0, counts
     if mesh_only:
         del bp
         torch.cuda.empty_cache()
@@ -1855,10 +1981,17 @@ def main() -> int:
     args = bp.encode_circuits(circuits)
     rns_out, step_counts, _ = counted(kl, lambda: bp.step(*args))
     assert step_counts["mont_mul"] == k4["step"] and step_counts["mont_mul_plain"] == 0, step_counts
+    check_lazy_launches(step_counts, "step")
+    assert step_counts["lazy_cols"] > 0 and step_counts["lazy_redc"] > 0, step_counts
     decoded, decode_counts, decode_s = counted(kl, lambda: bp.decode(*rns_out))
     assert decode_counts["mont_mul"] == k4["decode"] and decode_counts["mont_mul_plain"] == 0, decode_counts
+    check_lazy_launches(decode_counts, "decode")
+    assert counts["lazy_cols"] == step_counts["lazy_cols"] + decode_counts["lazy_cols"], (counts, step_counts)
+    assert counts["lazy_redc"] == step_counts["lazy_redc"] + decode_counts["lazy_redc"], (counts, step_counts)
     assert decoded == proofs
-    log(f"step: K4 {step_counts['mont_mul']} launches; decode: K4 {decode_counts['mont_mul']}, {decode_s:.3f} s")
+    log(f"step: K4 {step_counts['mont_mul']}, K5 {step_counts['lazy_cols']}, K6 {step_counts['lazy_redc']} "
+        f"launches; decode: K4 {decode_counts['mont_mul']}, K5 {decode_counts['lazy_cols']}, "
+        f"K6 {decode_counts['lazy_redc']}, {decode_s:.3f} s")
     steps = time_steps(bp, args)
     step_s = statistics.median(steps)
     rns_aten_ops = step_ops(bp, args)["aten_ops"]
@@ -2010,9 +2143,14 @@ def main() -> int:
     # launches in the main path's run (prove_batch: one B = 16 step and its
     # decode); K3's standalone kernel is never launched there (its multiply
     # runs inside K1 and K2), so its count is 0
+    lazy_timed = checks["lazy"]["timed"]
+    for name in ("lazy_cols", "lazy_redc"):  # at the step's shape
+        timed[name] = lazy_timed[LAZY_TIMED_LANES[0]][name]
+        errs[name] = checks["lazy"]["max_abs_err"]
+        bounds[name] = (timed[name]["bound_ms"], timed[name]["bound_by"])
     launches = {k: counts[k] for k in SOURCES}
     kernels = []
-    for name in ("mont_mul", "rns_mul_many", "rns_fold_window", "rns_fold_window_g2"):
+    for name in SOURCES:
         bound_ms, bound_by = bounds[name]
         kernels.append({
             "name": name, "route": "cuda", "source": SOURCES[name], "replaces": REPLACES[name],
@@ -2044,6 +2182,10 @@ def main() -> int:
                 graph_floor_ms=checks["mont_mul"]["graph_floor_ms"],
                 shapes=[{"shape": [24, n], "ms": t["ms"], "eager_ms": t["eager_ms"], "plain_ms": t["plain_ms"],
                          "bound_ms": k4_bounds[n][0], "bound_by": k4_bounds[n][1]} for n, t in k4_timed.items()])
+        if name in ("lazy_cols", "lazy_redc"):  # per part of the run, and at both timed shapes
+            kernels[-1].update(
+                launches_step=step_counts[name], launches_decode=decode_counts[name],
+                shapes=[{"shape": [36, n], **t[name]} for n, t in lazy_timed.items()])
     total_s = time.perf_counter() - t_start
     print(json.dumps({
         "setup_s": setup_s, "prover_build_s": prover_build_s, "prove_batch_s": prove_s,

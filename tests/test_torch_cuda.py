@@ -1,8 +1,9 @@
 """The CUDA kernels against their plain PyTorch versions, on the card, and
 the port's device paths against the CPU or the host oracle: the pairing,
 the ceremony, the group iNTT, the limb MSMs and the comb, every
-BatchProver strategy against the rns proofs, the NTT bench's launches, and
-the (2, 2) logical mesh of one card against the table strategy.
+BatchProver strategy against the rns proofs, the lazy columns' kernels (K5,
+K6) in the point operations and the rns prover, the NTT bench's launches,
+and the (2, 2) logical mesh of one card against the table strategy.
 
 Imports neither jax nor the reference, so it runs on the GPU machine:
 
@@ -12,8 +13,8 @@ Every test here needs a CUDA card and skips without one.  Lane counts that
 are not a multiple of the RNS kernels' 8-lane tile or the limb multiply's
 64-thread block exercise the ragged edge; "wave+1" is one lane past a full
 wave of the kernel's own persistent blocks (K1, K2: 8-lane tiles, K3: units
-of 6 tiles), so one block takes a second, ragged unit, or for K4 one lane
-past the blocks the card holds at once.
+of 6 tiles), so one block takes a second, ragged unit, or for K4, K5 and
+K6 one lane past the blocks the card holds at once.
 """
 
 import random
@@ -29,7 +30,7 @@ from bellman_mpc_tpu_torch.fields.bls12_381 import R, fp, fr
 from bellman_mpc_tpu_torch.fields.mock import mock
 from bellman_mpc_tpu_torch.ops import fold_kernels as fk
 from bellman_mpc_tpu_torch.ops import kernel_lib
-from bellman_mpc_tpu_torch.fields.limb import LimbField
+from bellman_mpc_tpu_torch.fields.limb import LazyCols, LimbField, _reduce_plan
 from bellman_mpc_tpu_torch.ops import mont_kernels as mk
 from bellman_mpc_tpu_torch.ops import pairing
 from bellman_mpc_tpu_torch.ops.mont_kernels import mont_mul
@@ -411,6 +412,183 @@ def test_batch_prover_strategies_match_rns(mimc8, strategy, signed, monkeypatch)
     assert bp.prove_batch(circuits) == want
     assert kernel_lib.plain_counts["mont_mul"] == 0 and kernel_lib.launch_counts["mont_mul"] > 0
     assert _no_fold()
+
+
+# ------------------------------------------- the lazy columns (K5, K6)
+
+
+def _lazy_lanes(kernel, f, lanes):
+    return mk.wave_lanes(f.L, kernel) + 1 if lanes == "wave+1" else lanes
+
+
+def _lazy_operands(f, rng, n, dev="cpu"):
+    """(L, n) Montgomery digits of values below 2p; lane 0 at the digit bound
+    `_dmax_lazy`, lane n - 1 the value 2p - 1."""
+    vals = [rng.randrange(2 * f.p) for _ in range(n - 1)] + [2 * f.p - 1]
+    t = _limbs(f, vals, "cpu")
+    t[:, 0] = torch.tensor(f._dmax_lazy, dtype=torch.int32)
+    return t.to(dev)
+
+
+def _caller_columns(f, rng, n):
+    """LazyCols at the bounds their callers make (on the CPU, plain path),
+    each with its `wide`: a product of `_dmax_lazy` operands, one of digit
+    sums (`ldsum`), the Karatsuba t2 - t0 - t1 with its `_sub_plan`
+    offsets, 3 t0 + t1, an `lb3` scaling, a scaling to the int32 edge (a
+    plan with folds before the REDC), point_add_mixed's wide sum with a
+    lifted element, and a wide scaling (pR <= T < 3pR)."""
+    a, b, c, d = (_lazy_operands(f, rng, n) for _ in range(4))
+    dm = f._dmax_lazy
+    d2 = tuple(2 * x for x in dm)
+    t0, t1, t2 = f.lazy_mul_many([(a, b), (c, d), (a + c, b + d)], [(dm, dm), (dm, dm), (d2, d2)])
+    value = lambda lc: sum(h << (11 * i) for i, h in enumerate(lc.hi))
+    edge = t0.scale(min(((1 << 31) - 1) // max(t0.hi), (f.p * f.R - 1) // value(t0)))
+    lifted = LazyCols(f, torch.cat([torch.zeros_like(c), c], dim=0), (0,) * f.L + dm)
+    folded = t0.fold()
+    return [(t0, False), (t2, False), (t2 - t0 - t1, False), (3 * t0 + t1, False),
+            (t0.fold().scale(12) - t1, False), (edge, False), (t2 + lifted, True),
+            (folded.scale((3 * f.p * f.R - 1) // value(folded)), True)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("lanes", [1, 13, 257, "wave+1"])
+@pytest.mark.parametrize("f", [mock, fp, fr], ids=["mock", "Fp", "Fr"])
+def test_k5_matches_plain(dev, f, lanes):
+    """K5 and lazy_mul_many against the plain columns: three stacked
+    products of lazy operands and of digit sums (2x the digit bound), and a
+    broadcast operand read in place."""
+    lanes = _lazy_lanes("lazy_cols", f, lanes)
+    rng = random.Random(f.L * 1000 + lanes + 5)
+    ops = [_lazy_operands(f, rng, lanes) for _ in range(4)]
+    a = torch.stack([ops[0], ops[1], ops[0] + ops[2]], dim=1).to(dev)
+    b = torch.stack([ops[1], ops[3], ops[1] + ops[3]], dim=1).to(dev)
+    before = kernel_lib.launch_counts["lazy_cols"]
+    got = (mk.lazy_cols(f, a, b), mk.lazy_cols(f, a, b[:, :1, :1]))
+    prods = f.lazy_mul_many([(a[:, 0], b[:, 0]), (a[:, 1], b[:, 1])])
+    torch.cuda.synchronize()
+    assert kernel_lib.launch_counts["lazy_cols"] == before + 3
+    assert torch.equal(got[0].cpu(), f.mul_cols(a.cpu(), b.cpu()))
+    assert torch.equal(got[1].cpu(), f.mul_cols(a.cpu(), b[:, :1, :1].cpu()))
+    assert all(torch.equal(lc.cols, got[0][:, i]) for i, lc in enumerate(prods))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("lanes", [1, 13, 257, "wave+1"])
+@pytest.mark.parametrize("f", [mock, fp, fr], ids=["mock", "Fp", "Fr"])
+def test_k6_matches_plain_at_caller_bounds(dev, f, lanes):
+    """K6 and LazyCols.reduce against the plain reduction on the columns of
+    `_caller_columns`, and on a stacked view (lazy_reduce_many's layout)
+    read in place."""
+    lanes = _lazy_lanes("lazy_redc", f, lanes)
+    rng = random.Random(f.L * 1000 + lanes + 6)
+    cases = _caller_columns(f, rng, lanes)
+    plans = [_reduce_plan(f, lc.hi, wide) for lc, wide in cases]
+    if f is not mock:
+        assert any(folds > 0 for folds, _ in plans)
+    before = kernel_lib.launch_counts["lazy_redc"]
+    for (lc, wide), plan in zip(cases, plans):
+        want = f.lazy_redc_plain(lc.cols, plan)
+        got = (mk.lazy_redc(f, lc.cols.to(dev), plan), LazyCols(f, lc.cols.to(dev), lc.hi).reduce(wide=wide))
+        assert all(torch.equal(g.cpu(), want) for g in got), (cases.index((lc, wide)), plan)
+    stacked = torch.stack([cases[2][0].cols, cases[3][0].cols], dim=1).to(dev)
+    assert torch.equal(mk.lazy_redc(f, stacked[:, 1], plans[3]).cpu(), f.lazy_redc_plain(cases[3][0].cols, plans[3]))
+    assert kernel_lib.launch_counts["lazy_redc"] == before + 2 * len(cases) + 1
+
+
+@pytest.mark.cuda
+def test_lazy_wrappers_reject_bad_operands(dev):
+    """What K5 and K6 reject on the card: another dtype, mixed devices, an L
+    without a kernel, the wrong limb count."""
+    x = torch.zeros((fr.L, 16), dtype=torch.int32, device=dev)
+    cols = torch.zeros((2 * fr.L, 16), dtype=torch.int32, device=dev)
+    with pytest.raises(ValueError):
+        mk.lazy_cols(fr, x.long(), x.long())
+    with pytest.raises(ValueError):
+        mk.lazy_cols(fr, x, x.cpu())
+    with pytest.raises(ValueError):
+        mk.lazy_redc(fr, cols.long(), (0, 1))
+    with pytest.raises(ValueError):
+        mk.lazy_redc(fp, cols, (0, 1))
+    f6 = LimbField((1 << 50) - 27)  # L = 6: no kernel
+    y = torch.zeros((f6.L, 4), dtype=torch.int32, device=dev)
+    with pytest.raises(ValueError):
+        mk.lazy_cols(f6, y, y)
+    with pytest.raises(ValueError):
+        mk.lazy_redc(f6, torch.cat([y, y]), (0, 1))
+
+
+def _count_lazy_calls(monkeypatch):
+    """Count LimbField.lazy_mul_many and LazyCols.reduce calls."""
+    calls = {"lazy_cols": 0, "lazy_redc": 0}
+    mul_many, reduce = LimbField.lazy_mul_many, LazyCols.reduce
+
+    def counted_mul_many(self, *args, **kwargs):
+        calls["lazy_cols"] += 1
+        return mul_many(self, *args, **kwargs)
+
+    def counted_reduce(self, *args, **kwargs):
+        calls["lazy_redc"] += 1
+        return reduce(self, *args, **kwargs)
+
+    monkeypatch.setattr(LimbField, "lazy_mul_many", counted_mul_many)
+    monkeypatch.setattr(LazyCols, "reduce", counted_reduce)
+    return calls
+
+
+def _lazy_counts():
+    return {k: kernel_lib.launch_counts[k] for k in ("lazy_cols", "lazy_redc")}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("group", ["g1", "g2"])
+def test_lazy_point_ops_match_cpu(dev, group, monkeypatch):
+    """point_add, point_double and scalar_mul_const by the proof's blinding
+    r = 27134 on the card give the CPU's raw limbs, one K5 per lazy product
+    and one K6 per reduction, and no plain lazy call."""
+    from bellman_mpc_tpu_torch.curves import device as cdev
+
+    grp, hostg = (cdev.g1_device, G1) if group == "g1" else (cdev.g2_device, G2)
+    rng = random.Random(20)
+    pts = [[hostg.mul(hostg.generator, rng.randrange(1, R)) for _ in range(5)] for _ in range(2)]
+    pts[1][2] = None  # an identity lane
+
+    def run(device):
+        p, q = (grp.encode_points(x, device) for x in pts)
+        s = cdev.point_add(grp.ops, p, q)
+        return s + cdev.point_double(grp.ops, s) + cdev.scalar_mul_const(grp.ops, p, 27134)
+
+    calls = _count_lazy_calls(monkeypatch)
+    kernel_lib.reset_launch_counts()
+    got = run(dev)
+    torch.cuda.synchronize()
+    assert _lazy_counts() == calls and calls["lazy_cols"] > 0
+    assert kernel_lib.plain_counts["lazy_cols"] == kernel_lib.plain_counts["lazy_redc"] == 0
+    assert all(torch.equal(g.cpu(), w) for g, w in zip(got, run("cpu")))
+
+
+@pytest.mark.cuda
+def test_batch_prover_lazy_kernels_match_plain(mimc8, monkeypatch):
+    """The rns BatchProver's prove_batch (step and decode) on the card: one
+    K5 per lazy product and one K6 per reduction, no plain lazy call, the
+    fixture's proofs; then the same with the plain lazy versions on the
+    card gives the same proofs."""
+    from bellman_mpc_tpu_torch.fields import limb
+    from bellman_mpc_tpu_torch.models import MiMCDemo
+    from bellman_mpc_tpu_torch.parallel import BatchProver
+
+    eng, params, constants, circuits, want = mimc8
+    bp = BatchProver(eng, params, MiMCDemo(constants, 0, 0))
+    calls = _count_lazy_calls(monkeypatch)
+    kernel_lib.reset_launch_counts()
+    assert bp.prove_batch(circuits) == want
+    assert _lazy_counts() == calls and calls["lazy_cols"] > 0 and calls["lazy_redc"] > 0
+    assert kernel_lib.plain_counts["lazy_cols"] == kernel_lib.plain_counts["lazy_redc"] == 0
+    monkeypatch.setattr(limb, "lazy_cols", lambda f, a, b: f.lazy_cols_plain(a, b))
+    monkeypatch.setattr(limb, "lazy_redc", lambda f, cols, plan: f.lazy_redc_plain(cols, plan))
+    kernel_lib.reset_launch_counts()
+    assert bp.prove_batch(circuits) == want
+    assert _lazy_counts() == {"lazy_cols": 0, "lazy_redc": 0}
+    assert kernel_lib.plain_counts["lazy_cols"] == calls["lazy_cols"] // 2
 
 
 # ------------------------------------------------ the opt-ins (BMT_GLV, ...)
