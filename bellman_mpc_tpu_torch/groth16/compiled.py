@@ -18,6 +18,7 @@ from __future__ import annotations
 from typing import List, Tuple
 
 from ..r1cs.core import AUX, INPUT, Circuit, ConstraintSystem, Variable
+from ..utils import profiling
 from .assembly import KeypairAssembly, ProvingAssignment
 from .generator import synthesize_keypair
 
@@ -103,10 +104,12 @@ class CompiledCircuit:
         self.b_aux_density = densities.b_aux_density
 
     def witness(self, circuit: Circuit) -> Tuple[List[int], List[int]]:
-        """Fast witness-only synthesis (includes the implicit ONE input)."""
+        """Fast witness-only synthesis (includes the implicit ONE input),
+        timed as the span "encode.synthesize" (utils/profiling.py)."""
         cs = WitnessOnlyCS(self.field)
         cs.alloc_input("", lambda: 1)
-        circuit.synthesize(cs)
+        with profiling.span("encode.synthesize"):
+            circuit.synthesize(cs)
         return cs.input_assignment, cs.aux_assignment
 
     def eval_abc(

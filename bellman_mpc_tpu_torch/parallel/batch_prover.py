@@ -59,6 +59,12 @@ reference (8 MSMs collapse to 5).  The table window width follows the
 reference: BMT_TABLE_C, else `pick_table_c` under BMT_TABLE_MEM_MB for
 signed tables on the card (against the extended width and the decomposed
 scalar bits under GLV, the sum of the segments when merged), else 4.
+Where the rns tables of all W windows would not fit the card
+(`table_budget`: half its memory; without GLV or merging), they hold
+ceil(W / k) windows for the fewest passes k that fit: each MSM folds its
+digits in k passes over the same tables and joins the passes by Horner's
+rule (`_msm_in_passes`); tables are built over slices of the bases
+(TABLE_CHUNK_BYTES of limb table each) to bound the build's peak.
 """
 
 from __future__ import annotations
@@ -73,6 +79,7 @@ from ..curves.device import (
     g1_device,
     g2_device,
     point_add,
+    point_double,
     point_identity,
     scalar_mul_bits,
     scalar_mul_const,
@@ -90,7 +97,7 @@ from ..groth16.prover import (
 )
 from ..groth16.types import Parameters, Proof
 from ..ops.domain import domain_size_for, warm_twiddles
-from ..ops.fold_kernels import pad_rns_table
+from ..ops.fold_kernels import PAD_C, pad_rns_table
 from ..ops.glv import (
     GLS_NBITS,
     GLV_NBITS,
@@ -116,6 +123,7 @@ from ..ops.msm import (
     window_tables_affine,
 )
 from ..r1cs.core import Circuit
+from ..utils import profiling
 from .sharded import BaseShards, shard_batch_inputs, sharded_msm_table, sharded_msm_table_affine
 
 NBITS = 255  # Fr scalar bits
@@ -170,6 +178,17 @@ def gls_signed_digits(scal: torch.Tensor, c: int) -> torch.Tensor:
     negs = torch.cat([neg[t] for t in range(4)], dim=-1)
     sd = signed_digits(digits_from_bits(bits, c), c)
     return torch.where(negs[None], -sd, sd)
+
+
+TABLE_CHUNK_BYTES = 6 << 30  # limb table held at once while a table is built
+
+
+def table_budget(device):
+    """Bytes the rns tables may hold: half a card's memory; None (no limit)
+    off the card."""
+    if device.type != "cuda":
+        return None
+    return torch.cuda.get_device_properties(device).total_memory // 2
 
 
 def _pad_pow2_int(n: int) -> int:
@@ -284,6 +303,7 @@ class BatchProver:
         self._tables = {}
         self._merged = None
         self._sbases = {}
+        self.table_passes = 1
         self._table_signed = strategy == "rns" or (
             strategy == "table" and os.environ.get("BMT_TABLE_SIGNED", "1") == "1")
         if strategy == "flatpip":
@@ -297,13 +317,17 @@ class BatchProver:
         pick = self._table_signed and self.device.type == "cuda"
         if self.merge_g1:
             self._build_merged_g1(c_env, budget, pick)
+        plan = {}
         for _, crs, grp in self._base_sets():
             g2 = grp is g2_device
-            if (self.merge_g1 and not g2) or id(crs) in self._tables:
+            if (self.merge_g1 and not g2) or id(crs) in plan:
                 continue
             n = crs[0].shape[-1]
             nbits, n_eff = ((GLS_NBITS, 4 * n) if g2 else (GLV_NBITS, 2 * n)) if self.glv else (NBITS, n)
-            c_tab = c_env or (pick_table_c(n_eff, g2, budget, nbits) if pick else 4)
+            plan[id(crs)] = (crs, grp, c_env or (pick_table_c(n_eff, g2, budget, nbits) if pick else 4), nbits)
+        if strategy == "rns" and not (self.glv or self.merge_g1):
+            self.table_passes = self._pick_passes(plan.values())
+        for crs, grp, c_tab, nbits in plan.values():
             if strategy == "table":
                 if self._table_signed:
                     tab = self._limb_table(grp, crs, c_tab, nbits)
@@ -313,11 +337,57 @@ class BatchProver:
                     tab = BaseShards(self.mesh, tab)
                 self._tables[id(crs)] = (tab, None, c_tab)
                 continue
-            tab = self._limb_table(grp, crs, c_tab, nbits)
-            rtab, bound = tables_to_rns(rns_g2_ops() if g2 else rns_g1_ops(), bc.fp, tab)
+            self._tables[id(crs)] = self._rns_table(grp, crs, c_tab, nbits) + (c_tab,)
+
+    def _pick_passes(self, plan) -> int:
+        """The fewest passes k whose tables, each of ceil(W / k) of its W
+        windows, fit `table_budget`.  Every RNS table entry is an affine
+        point of 80 int16 rows per coordinate."""
+        budget = table_budget(self.device)
+        if budget is None:
+            return 1
+        sizes = [(crs[0].shape[-1] * (2 if grp is g2_device else 1), -(-nbits // c) + 1, (1 << (c - 1)) + 1)
+                 for crs, grp, c, nbits in plan]
+
+        def total(k):
+            return sum(4 * PAD_C * n * nb * -(-w // k) for n, w, nb in sizes)
+
+        k = 1
+        while total(k) > budget and k < max(w for _, w, _ in sizes):
+            k += 1
+        return k
+
+    def _rns_table(self, grp, crs, c_tab: int, nbits: int):
+        """One base set's padded RNS table and its bound: ceil(W / passes)
+        windows, built over slices of the bases whose limb tables hold at
+        most TABLE_CHUNK_BYTES each; a GLV table (whose phi- or
+        psi-extension doubles the base axis) in one slice."""
+        g2 = grp is g2_device
+        rops = rns_g2_ops() if g2 else rns_g1_ops()
+        w_pass = -(-(-(-nbits // c_tab) + 1) // self.table_passes)
+        if self.table_passes > 1:
+            nbits = c_tab * (w_pass - 1)  # window_tables_affine then builds w_pass windows
+        n = crs[0].shape[-1]
+        chunk = n
+        limb_bytes = w_pass * ((1 << (c_tab - 1)) + 1) * (576 if g2 else 288)
+        while not self.glv and chunk > 1 and chunk * limb_bytes > TABLE_CHUNK_BYTES:
+            chunk //= 2
+        out = None
+        for n0 in range(0, n, chunk):
+            tab = self._limb_table(grp, tuple(x[..., n0 : n0 + chunk] for x in crs), c_tab, nbits)
+            rtab, bound = tables_to_rns(rops, bc.fp, tab)
             del tab
-            self._tables[id(crs)] = (pad_rns_table(default_rns_field(), rtab), bound, c_tab)
+            padded = pad_rns_table(default_rns_field(), rtab)
             del rtab
+            if chunk == n:
+                return padded, bound
+            if out is None:
+                out = tuple(torch.empty(tuple(t.shape[:-1]) + (n,), dtype=t.dtype, device=t.device)
+                            for t in padded)
+            for o, t in zip(out, padded):
+                o[..., n0 : n0 + chunk] = t
+            del padded
+        return out, bound
 
     def _limb_table(self, grp, crs, c_tab: int, nbits: int):
         """Signed affine limb tables of one base set, phi- (G1) or
@@ -380,11 +450,12 @@ class BatchProver:
             tab, bound, c_tab = self._tables[id(crs)]
             if strategy == "rns":
                 g2 = grp is g2_device
+                rops = rns_g2_ops() if g2 else rns_g1_ops()
                 if self.glv:
                     sd = gls_signed_digits(bits, c_tab) if g2 else glv_signed_digits(bits, c_tab)
                 else:
                     sd = signed_digits(digits_from_bits(bits, c_tab), c_tab)
-                return msm_table_affine_rns(rns_g2_ops() if g2 else rns_g1_ops(), bc.fp, tab, sd, bound)
+                return self._msm_in_passes(ops, rops, tab, sd, bound, c_tab)
             digits = digits_from_bits(bits, c_tab)
             if self.mesh is not None:
                 if self._table_signed:
@@ -397,6 +468,28 @@ class BatchProver:
         if strategy == "flatpip" and id(crs) in self._sbases:
             return msm_flat_pippenger(ops, self._sbases[id(crs)], digits_from_bits(bits, c), c)
         return self._msm_limb(ops, crs, bits)
+
+    def _msm_in_passes(self, ops, rops, tab, sd, bound, c_tab):
+        """The RNS fold over tables of W' windows: the signed digits cut
+        into `table_passes` passes of W' windows, pass p folding
+        sum_i sum_w d[p W' + w, i] 2^(c w) P_i against the same tables, the
+        passes joined by Horner's rule in limb form:
+        R = R_{k-1}; R = 2^(c W') R + R_p for p = k-2 .. 0, timed as the
+        device span "msm.join", its doublings counted as "msm.join_doublings"
+        (utils/profiling.py).  One pass (W' = W) is the plain fold."""
+        w_pass = tab[0].shape[tab[0].dim() - 3]
+        parts = [msm_table_affine_rns(rops, bc.fp, tab, sd[p * w_pass : (p + 1) * w_pass], bound)
+                 for p in range(-(-sd.shape[0] // w_pass))]
+        acc = parts[-1]
+        if len(parts) == 1:
+            return acc
+        profiling.count("msm.join_doublings", c_tab * w_pass * (len(parts) - 1))
+        with profiling.device_span("msm.join", sd.device):
+            for part in reversed(parts[:-1]):
+                for _ in range(c_tab * w_pass):
+                    acc = point_double(ops, acc)
+                acc = point_add(ops, acc, part)
+        return acc
 
     def _msm_limb(self, ops, bases, bits):
         """The bucket method (pippenger, 16 bases or more) or per-proof
@@ -460,7 +553,8 @@ class BatchProver:
             return fr.unpack_device(x8.reshape(B_ * k, nb)).reshape(fr.L, B_, k)
 
         abc = fr.to_mont(torch.stack([unpack(a8), unpack(b8), unpack(c8)], dim=1))
-        h = self._pipeline(abc[:, 0], abc[:, 1], abc[:, 2])[..., : self.m - 1]
+        with profiling.device_span("step.h", abc.device, units=B):
+            h = self._pipeline(abc[:, 0], abc[:, 1], abc[:, 2])[..., : self.m - 1]
         wit_in = unpack(wit_in8)
         wit_aux = unpack(wit_aux8)
 
