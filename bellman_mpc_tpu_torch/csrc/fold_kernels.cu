@@ -6,6 +6,12 @@
 //                        file (the standalone kernel batches 6 lane tiles)
 //   bmt_fold_g1  (K1) <- _jit_mixed_add_pallas   (one G1 fold window)
 //   bmt_fold_g2  (K2) <- _jit_mixed_add_pallas_g2 (one G2 fold window)
+//   bmt_tree_add_g1, bmt_tree_add_g2 (K7): one level of the tree reduction
+//                        that sums each MSM's folded accumulator; no TPU
+//                        kernel (the reference leaves rns_point.tree_reduce
+//                        to XLA), added because the same level on PyTorch's
+//                        own operators is some 330 (G1) and 950 (G2)
+//                        launches, each paid for on the host
 // The plain PyTorch versions sit beside the wrappers in ops/fold_kernels.py.
 //
 // What bounds K1 and K2: a fold window is a dependent chain of RNS
@@ -53,6 +59,15 @@
 // K*p residues as a table consumed in call order, so the residues equal the
 // plain versions' bit for bit.  The identity sentinel is read before the
 // sign flip; lanes past the ragged edge compute on zeros and store nothing.
+//
+// K7 is the same design on the complete addition (RCB15 Algorithm 7): an
+// output lane sums two accumulator lanes of one level with 12 RNS products
+// (G1, batches of 6 and 6) or 12 Fp2 products (G2, 36 Fp products in
+// batches of two Karatsuba triples); it is bound like K1 and K2, by the
+// multiplies' latency, and reads and writes 9 coordinates per lane.  The
+// schedule of its K*p rows comes from ops/fold_kernels.tree_schedule, the
+// plain level replayed on the host (G2 in rns_point's stacked Fp2
+// bookkeeping: one K for both components of a sub, given twice).
 //
 // Left for later: fewer integer instructions per lane (the 9 pad rows
 // still run the channelwise ops; FP32 for the small reductions), warp
@@ -384,6 +399,36 @@ __device__ __forceinline__ void point_add_mixed(Ops& o, V X1, V Y1, V Z1, V X2, 
   Z3 = o.add(q[4], q[5]);
 }
 
+// Complete addition P + Q, RCB15 Algorithm 7 (a = 0): the statement order of
+// curves/rns_point.point_add, so the K*p rows are consumed in its order.
+template <class Ops, class V = typename Ops::V>
+__device__ __forceinline__ void point_add(Ops& o, V X1, V Y1, V Z1, V X2, V Y2, V Z2,
+                                          V& X3, V& Y3, V& Z3) {
+  V a1[6] = {X1, Y1, Z1, o.add(X1, Y1), o.add(Y1, Z1), o.add(X1, Z1)};
+  V b1[6] = {X2, Y2, Z2, o.add(X2, Y2), o.add(Y2, Z2), o.add(X2, Z2)};
+  V p[6];
+  o.template mul_many<6>(a1, b1, p);
+  const V t0 = p[0], t1 = p[1], t2 = p[2];
+  const V u3 = o.sub(p[3], t0);
+  const V t3 = o.sub(u3, t1);
+  const V u4 = o.sub(p[4], t1);
+  const V t4 = o.sub(u4, t2);
+  const V u5 = o.sub(p[5], t0);
+  const V y3 = o.sub(u5, t2);
+  const V y3b = o.mul_b3(y3);
+  const V t0_3 = o.scale3(t0);
+  const V t2b = o.mul_b3(t2);
+  const V Z3m = o.add(t1, t2b);
+  const V t1m = o.sub(t1, t2b);
+  V a2[6] = {t4, t3, y3b, t1m, t0_3, Z3m};
+  V b2[6] = {y3b, t1m, t0_3, Z3m, t3, t4};
+  V q[6];
+  o.template mul_many<6>(a2, b2, q);
+  X3 = o.sub(q[1], q[0]);
+  Y3 = o.add(q[3], q[2]);
+  Z3 = o.add(q[5], q[4]);
+}
+
 // Per-lane identity flag: every B row of the given tiles exactly zero.
 // `nonzero` is this thread's "some tile is nonzero here" bit.
 __device__ __forceinline__ bool lane_is_sentinel(TcCtx& c, bool nonzero) {
@@ -465,6 +510,46 @@ __global__ void __launch_bounds__(TC_THREADS, 2) fold_kernel(
   }
 }
 
+// One level of the tree reduction, K7 with G1Ops or G2Ops: output lane
+// (o, i) of an (80, COMPS, outer, half) tensor is the complete sum of lanes
+// (o, i) and (o, half + i) of the (80, COMPS, outer, 2 half) input; as in
+// fold_kernel, component c of row r, lane l sits at (COMPS r + c) n + l for
+// a tensor of n lanes.  Every coordinate is below cap p in and out (the
+// host's schedule asserts it).
+template <class Ops>
+__global__ void __launch_bounds__(TC_THREADS, 2) tree_add_kernel(
+    const int* __restrict__ ax, const int* __restrict__ ay, const int* __restrict__ az,
+    int* __restrict__ ox, int* __restrict__ oy, int* __restrict__ oz,
+    const int* __restrict__ kp, const Consts* __restrict__ K, const double* __restrict__ wf,
+    int outer, int half, int b3) {
+  using V = typename Ops::V;
+  TcSmem& s = *reinterpret_cast<TcSmem*>(tc_smem);
+  TcCtx c;
+  init_tc(c, K, wf, kp, &s);
+  __syncthreads();
+  Ops o{c, (uint32_t)b3};
+  const int lanes = outer * half;  // output lanes; the input holds twice as many
+  const int tiles = (lanes + TC_LANES - 1) / TC_LANES;
+  for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
+    c.kidx = 0;
+    const int lane = tile * TC_LANES + c.x;
+    const bool valid = lane < lanes;
+    // input lane of (o, i) = o 2 half + i = lane + o half
+    const size_t in = (size_t)c.r * Ops::COMPS * 2 * lanes + (size_t)lane + (size_t)(lane / half) * half;
+    const size_t out = (size_t)c.r * Ops::COMPS * lanes + lane;
+    auto load = [&](const int* t, size_t i) { return valid ? Ops::load(t, i, 2 * lanes) : V{}; };
+    const V X1 = load(ax, in), Y1 = load(ay, in), Z1 = load(az, in);
+    const V X2 = load(ax, in + half), Y2 = load(ay, in + half), Z2 = load(az, in + half);
+    V X3, Y3, Z3;
+    point_add(o, X1, Y1, Z1, X2, Y2, Z2, X3, Y3, Z3);
+    if (valid) {
+      Ops::store(ox, out, lanes, X3);
+      Ops::store(oy, out, lanes, Y3);
+      Ops::store(oz, out, lanes, Z3);
+    }
+  }
+}
+
 // Blocks of one full wave of a persistent kernel on the current device:
 // resident blocks per SM (occupancy API) x SMs, cached per device, after
 // allowing the kernel its dynamic shared memory on that device.
@@ -507,6 +592,23 @@ int launch_fold(const int* ax, const int* ay, const int* az, const int* qx, cons
   return (int)cudaGetLastError();
 }
 
+template <class Ops>
+int tree_wave_blocks() {
+  static Wave w;
+  return wave_blocks(tree_add_kernel<Ops>, w);
+}
+
+template <class Ops>
+int launch_tree(const int* ax, const int* ay, const int* az, int* ox, int* oy, int* oz,
+                const int* kp, const void* consts, const void* wf, int outer, int half, int b3,
+                void* stream) {
+  if (outer <= 0 || half <= 0) return 0;
+  const int grid = tc_grid(tree_wave_blocks<Ops>(), (outer * half + TC_LANES - 1) / TC_LANES);
+  tree_add_kernel<Ops><<<grid, dim3(TC_LANES, PC), sizeof(TcSmem), (cudaStream_t)stream>>>(
+      ax, ay, az, ox, oy, oz, kp, (const Consts*)consts, (const double*)wf, outer, half, b3);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 // ------------------------------------------------------------ C entry points
@@ -540,10 +642,27 @@ extern "C" int bmt_fold_g2(const int* ax, const int* ay, const int* az, const in
   return launch_fold<G2Ops>(ax, ay, az, qx, qy, sg, ox, oy, oz, kp, consts, wf, lanes, b3c, stream);
 }
 
-// Lanes that one full wave of K1's or K2's (8-lane tiles) or K3's (NMAX
-// tiles per unit) persistent blocks covers.
+// One level of the G1 tree reduction: a* are (80, outer, 2 half) tiles, o*
+// (80, outer, half).
+extern "C" int bmt_tree_add_g1(const int* ax, const int* ay, const int* az, int* ox, int* oy,
+                               int* oz, const int* kp, const void* consts, const void* wf,
+                               int outer, int half, int b3, void* stream) {
+  return launch_tree<G1Ops>(ax, ay, az, ox, oy, oz, kp, consts, wf, outer, half, b3, stream);
+}
+
+// The same on G2: a* are (80, 2, outer, 2 half) tensors, o* (80, 2, outer, half).
+extern "C" int bmt_tree_add_g2(const int* ax, const int* ay, const int* az, int* ox, int* oy,
+                               int* oz, const int* kp, const void* consts, const void* wf,
+                               int outer, int half, int b3c, void* stream) {
+  return launch_tree<G2Ops>(ax, ay, az, ox, oy, oz, kp, consts, wf, outer, half, b3c, stream);
+}
+
+// Lanes that one full wave of K1's, K2's or K7's (8-lane tiles) or K3's
+// (NMAX tiles per unit) persistent blocks covers.
 extern "C" int bmt_fold_g1_wave_lanes() { return fold_wave_blocks<G1Ops>() * TC_LANES; }
 extern "C" int bmt_fold_g2_wave_lanes() { return fold_wave_blocks<G2Ops>() * TC_LANES; }
+extern "C" int bmt_tree_g1_wave_lanes() { return tree_wave_blocks<G1Ops>() * TC_LANES; }
+extern "C" int bmt_tree_g2_wave_lanes() { return tree_wave_blocks<G2Ops>() * TC_LANES; }
 extern "C" int bmt_rns_mul_wave_lanes() {
   return wave_blocks(rns_mul_kernel, mul_wave) * NMAX * TC_LANES;
 }

@@ -10,7 +10,9 @@ subtraction, and with it the residues.
 `point_add_mixed` is also the formula the fold kernels run
 (ops/fold_kernels.py): the plain versions call it over a padded-layout shim,
 and the same call, replayed on the host, yields the K sequence the CUDA
-kernels are handed.  The reference's other helpers are here too, held
+kernels are handed.  `point_add` is likewise the tree kernel's: the MSMs
+reduce their accumulators level by level through
+`ops/fold_kernels.rns_tree_level`, whose residues are `tree_reduce`'s.  The reference's other helpers are here too, held
 against it by the tests: `point_double`, `point_select`, `is_stored_zero`
 (its XLA fold tests the sentinel with it; the port's fold kernels and
 their plain versions test it inside) and the bound proofs

@@ -8,7 +8,13 @@ kernels on the prover's main path:
   * K1 `rns_fold_window`    <- `_jit_mixed_add_pallas` (one G1 fold window:
     acc <- acc + sign*Q by the complete mixed addition, b3 = 12);
   * K2 `rns_fold_window_g2` <- `_jit_mixed_add_pallas_g2` (the same on the
-    G2 twist over Fp2, b3 = 12(1+u), Karatsuba grouping of `_ShimG2Ops`).
+    G2 twist over Fp2, b3 = 12(1+u), Karatsuba grouping of `_ShimG2Ops`);
+
+and one kernel the reference leaves to XLA:
+
+  * K7 `rns_tree_level` (one level of the tree reduction that sums each
+    MSM's folded accumulator, `rns_point.tree_reduce`'s halving by the
+    complete addition, on the padded layout).
 
 Each wrapper takes the plain PyTorch version ONLY for tensors on the CPU; a
 CUDA tensor goes to the hand-written kernel (csrc/fold_kernels.cu) or the
@@ -19,7 +25,8 @@ The kernels never re-derive the RNS bound bookkeeping.  The K of every
 subtraction and negation of the mixed addition (RnsVal.__sub__ / neg add
 K*p, K = ceil(bound)) is produced by `fold_schedule`, which runs the very
 formula the plain versions run (`rns_point.point_add_mixed` over the padded
-shim) on a one-lane host dummy and records each K in call order.  The
+shim) on a one-lane host dummy and records each K in call order; K7's comes
+from `tree_schedule` the same way (`rns_point.point_add`).  The
 kernels consume that K*p table in the same order, so their residues equal
 the plain versions' bit for bit.
 """
@@ -34,9 +41,9 @@ import numpy as np
 import torch
 
 from ..curves import rns_point as rpt
-from ..curves.rns_point import RnsG1Ops
+from ..curves.rns_point import RnsG1Ops, RnsG2Ops
 from ..fields.rns import RnsVal
-from .kernel_lib import device_kind, launch_counts, load, raise_on, stream
+from .kernel_lib import device_kind, launch_counts, load, plain_counts, raise_on, stream
 
 PAD_B = 40  # B channels at padded rows [0, 40) (35 real + 5 pad)
 PAD_C = 80  # B' + m_r at padded rows [40, 80) (36 real + 4 pad)
@@ -46,6 +53,8 @@ G2_CAP = 256
 # formula, in csrc/fold_kernels.cu's order); checked against fold_schedule
 G1_NUM_K = 5
 G2_NUM_K = 45
+G1_TREE_NUM_K = 8  # the same for a level of the tree reduction (tree_schedule)
+G2_TREE_NUM_K = 54
 # base extensions on the tensor cores: targets padded to tiles of 8, sources
 # to k-steps of 4 (csrc/fold_kernels.cu EXT_T, EXT_S)
 EXT_T = 40
@@ -156,8 +165,10 @@ def rns_mul_block_plain(f, x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
 class PadShimField:
     """RnsField facade over the 80-row padded layout (the reference's
     `_PadShimField`): exactly the surface RnsVal and the point formulas
-    touch.  K*p residues are exact (K * (p mod m)) mod m; `record`, when
-    given, collects every K in call order (the kernels' schedule)."""
+    touch, on flat (80, T) tiles or, for RnsG2Ops, stacked (80, 2, T) Fp2
+    tiles.  K*p residues are exact (K * (p mod m)) mod m; `record`, when
+    given, collects every K in call order (the kernels' schedule), once per
+    component of a stacked tile, as the kernels consume them."""
 
     C = PAD_C
 
@@ -167,21 +178,30 @@ class PadShimField:
         self.Mmin = real.Mmin
         self.M = real.M
         self.k = real.k
-        self._m = _dev_const(real, "m_pad", device).reshape(PAD_C, 1)
+        self._m = _dev_const(real, "m_pad", device)
         self._m32 = self._m.to(torch.int32)
-        self._pmod = _dev_const(real, "pmod", device).reshape(PAD_C, 1)
+        self._pmod = _dev_const(real, "pmod", device)
         self.record = record
 
+    @staticmethod
+    def _bc(col, like):
+        return col.reshape((PAD_C,) + (1,) * (like.dim() - 1))
+
     def m_bc(self, like):
-        return self._m32
+        return self._bc(self._m32, like)
 
     def reduce(self, t):
-        return (t.to(torch.int64) % self._m).to(torch.int32)
+        return (t.to(torch.int64) % self._bc(self._m, t)).to(torch.int32)
 
     def kp_table(self, K: int, like):
         if self.record is not None:
-            self.record.append(K)
-        return ((K * self._pmod) % self._m).to(torch.int32)
+            # the schedules replay one lane: flat (80, 1) tiles and, under
+            # RnsG2Ops, stacked (80, 2, 1) Fp2 tiles, whose K the kernels
+            # take once per component
+            comps = {(PAD_C, 1): 1, (PAD_C, 2, 1): 2}.get(tuple(like.shape))
+            assert comps, f"recording on a {tuple(like.shape)} tile, not one lane"
+            self.record.extend([K] * comps)
+        return self._bc((K * self._pmod) % self._m, like).to(torch.int32)
 
     def mul_many(self, pairs):
         T = pairs[0][0].res.shape[-1]
@@ -307,6 +327,45 @@ def fold_schedule(f, b, tab_n: int, cap: int, g2: bool) -> Tuple[int, ...]:
     return tuple(ks)
 
 
+# ------------------------------------------------------- the tree reduction
+
+
+def tree_level_plain(f, b, acc, cap: int, g2: bool, record=None):
+    """Plain version of one level of the tree reduction: acc = 3 padded
+    (80, [2,] *outer, n) int32 tiles, n even -> 3 tiles (80, [2,] *outer,
+    n/2), output lane (o, i) the complete sum (rpt.point_add, RCB15 Alg. 7)
+    of the points at (o, i) and (o, n/2 + i), coordinates below cap * p in
+    and out (asserted).  The formula runs over the padded shim with
+    rns_point's own coordinate ops (for G2 RnsG2Ops's stacked bookkeeping,
+    one bound for both components), so its residues are rpt.tree_reduce's."""
+    shape = tuple(acc[0].shape)
+    lead = shape[:2] if g2 else shape[:1]
+    half = shape[-1] // 2
+    if acc[0].is_cuda:
+        plain_counts["rns_tree_add"] += 1
+    shim = PadShimField(f, acc[0].device, record)
+    ops = RnsG2Ops(shim, b) if g2 else RnsG1Ops(shim, b)
+    capf = Fraction(cap)
+    tiles = [t.reshape(lead + (-1, 2 * half)) for t in acc]
+    p, q = (tuple(RnsVal(shim, t[..., s].reshape(lead + (-1,)), capf) for t in tiles)
+            for s in (slice(0, half), slice(half, None)))
+    out = rpt.point_add(ops, p, q)
+    assert max(v.a for v in out) <= capf, "tree bound escape"
+    return tuple(v.res.reshape(shape[:-1] + (half,)) for v in out)
+
+
+@functools.lru_cache(maxsize=None)
+def tree_schedule(f, b, cap: int, g2: bool) -> Tuple[int, ...]:
+    """The K of every sub/neg of one tree level, in the order the kernel
+    consumes them (a stacked G2 sub once per component): the plain level
+    replayed on one host output lane at input bounds (cap, cap), whose
+    bookkeeping asserts the output within cap."""
+    z = torch.zeros((PAD_C, 2, 2) if g2 else (PAD_C, 2), dtype=torch.int32)
+    ks: List[int] = []
+    tree_level_plain(f, b, (z,) * 3, cap, g2, record=ks)
+    return tuple(ks)
+
+
 def _kp_rows(f, ks: Tuple[int, ...], device) -> torch.Tensor:
     """(len(ks), 80) int32 residues of K*p per padded row (exact host ints)."""
     ck = (id(f), ("kp", ks), str(torch.device(device)))
@@ -390,6 +449,13 @@ def fold_g2_wave_lanes() -> int:
     """Lanes that one full wave of K2's persistent blocks covers on the
     current CUDA device (blocks per SM x SMs x 8 lanes)."""
     return int(load().bmt_fold_g2_wave_lanes())
+
+
+def tree_wave_lanes(g2: bool = False) -> int:
+    """Output lanes that one full wave of the tree kernel's persistent
+    blocks covers on the current CUDA device (blocks per SM x SMs x 8)."""
+    lib = load()
+    return int(lib.bmt_tree_g2_wave_lanes() if g2 else lib.bmt_tree_g1_wave_lanes())
 
 
 def rns_mul_wave_lanes() -> int:
@@ -491,4 +557,38 @@ def rns_fold_window_g2(f, b3c: int, acc_res, q, sgn, tab_bound, cap):
         _ext_fragments(f, dev).data_ptr(), lanes, b3c, stream(dev))
     raise_on(err, "bmt_fold_g2")
     launch_counts["rns_fold_window_g2"] += 1
+    return outs
+
+
+def rns_tree_level(f, b, acc_res, cap, g2: bool = False):
+    """One level of the RNS tree reduction, one launch of
+    `tree_add_kernel<G1Ops>` or `<G2Ops>` on the card: acc_res, 3 contiguous
+    padded (80, [2,] *outer, n) int32 tiles (n even; component axis 1 for
+    G2) -> 3 tiles (80, [2,] *outer, n/2), lane (o, i) = point (o, i) +
+    point (o, n/2 + i) by the complete addition (`tree_level_plain`, taken
+    for CPU tensors); coordinates below cap * p in and out.  b is the
+    curve's b3 (G1) or b3c (G2)."""
+    shape = tuple(acc_res[0].shape)
+    n = shape[-1]
+    if n < 2 or n % 2:
+        raise ValueError(f"a tree level halves an even lane axis, got {n}")
+    cap = int(cap)
+    if device_kind(acc_res[0]) == "cpu":
+        return tree_level_plain(f, b, acc_res, cap, g2)
+    dev = acc_res[0].device
+    _check_tiles(acc_res, shape, dev)
+    if g2 and (len(shape) < 3 or shape[1] != 2):
+        raise ValueError(f"G2 tiles are (80, 2, ..., n), got {shape}")
+    half = n // 2
+    outer = int(np.prod(shape[2 if g2 else 1 : -1]))
+    ks = tree_schedule(f, b, cap, g2)
+    assert len(ks) == (G2_TREE_NUM_K if g2 else G1_TREE_NUM_K), "tree schedule does not match the kernel"
+    kp = _kp_rows(f, ks, dev)
+    outs = tuple(torch.empty(shape[:-1] + (half,), dtype=torch.int32, device=dev) for _ in range(3))
+    name = "bmt_tree_add_g2" if g2 else "bmt_tree_add_g1"
+    err = getattr(load(), name)(
+        *(t.data_ptr() for t in acc_res), *(o.data_ptr() for o in outs), kp.data_ptr(),
+        _kernel_consts(f, dev).data_ptr(), _ext_fragments(f, dev).data_ptr(), outer, half, b, stream(dev))
+    raise_on(err, name)
+    launch_counts["rns_tree_add"] += 1
     return outs

@@ -33,12 +33,12 @@ _lib = None
 
 launch_counts: Dict[str, int] = {
     "mont_mul": 0, "rns_mul_many": 0, "rns_fold_window": 0, "rns_fold_window_g2": 0,
-    "lazy_cols": 0, "lazy_redc": 0,
+    "lazy_cols": 0, "lazy_redc": 0, "rns_tree_add": 0,
 }
 # calls of a kernel's plain version on a CUDA tensor (LimbField.mul_plain,
-# lazy_cols_plain and lazy_redc_plain count here), so a run can show that
-# its path took none of them
-plain_counts: Dict[str, int] = {"mont_mul": 0, "lazy_cols": 0, "lazy_redc": 0}
+# lazy_cols_plain, lazy_redc_plain and tree_level_plain count here), so a
+# run can show that its path took none of them
+plain_counts: Dict[str, int] = {"mont_mul": 0, "lazy_cols": 0, "lazy_redc": 0, "rns_tree_add": 0}
 
 
 def reset_launch_counts() -> None:
@@ -121,6 +121,10 @@ ARGTYPES = {
     "bmt_fold_g1_wave_lanes": [],
     "bmt_fold_g2_wave_lanes": [],
     "bmt_rns_mul_wave_lanes": [],
+    "bmt_tree_add_g1": [_P] * 3 + [_P] * 3 + [_P, _P, _P, _I, _I, _I, _P],
+    "bmt_tree_add_g2": [_P] * 3 + [_P] * 3 + [_P, _P, _P, _I, _I, _I, _P],
+    "bmt_tree_g1_wave_lanes": [],
+    "bmt_tree_g2_wave_lanes": [],
     "bmt_lazy_cols": [_P, _P, _P, _P, _I, _I, _P],
     "bmt_lazy_redc": [_P, _P, _P, _P, _I, _I, _P],
     "bmt_lazy_cols_wave_lanes": [_I],

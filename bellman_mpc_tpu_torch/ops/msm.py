@@ -50,6 +50,7 @@ from ..curves.device import (
     scalars_to_bits,
     tree_reduce,
 )
+from ..utils import profiling
 
 
 def _pad_pow2(n: int) -> int:
@@ -407,7 +408,7 @@ def msm_table_affine_rns(rops, lf, tables, sdigits: torch.Tensor, tab_bound, seg
     padded-table branches): per window, gather the |digit| bucket and fold
     it into the accumulator with ONE fold-kernel launch (K1 for G1, K2 for
     G2; the plain versions on the CPU).  Then the tree reduction and the
-    bridge back to limb form.
+    bridge back to limb form (`_rns_fold_reduce`).
 
     tables: (80, [2,] W, nb, N) int16; sdigits: (W, B, N) signed digits.
     Returns a limb point (L, [2,] B, 1).  The accumulator is pinned to the
@@ -416,17 +417,9 @@ def msm_table_affine_rns(rops, lf, tables, sdigits: torch.Tensor, tab_bound, seg
     seg_sizes=(n_0, ..., n_{S-1}) runs S independent MSMs as one fold: the
     base axis holds S concatenated base sets (N = sum(n_s), each a power of
     two), the windows fold at the full (B, N) width, and the reduction sums
-    within each segment only (`_rns_fold_reduce`).  Returns (L, [2,] B, S)."""
+    within each segment only.  Returns (L, [2,] B, S)."""
     from ..curves import rns_point as rpt
-    from .fold_kernels import (
-        G1_CAP,
-        G2_CAP,
-        PAD_C,
-        rns_fold_window,
-        rns_fold_window_g2,
-        rns_pad_rows,
-        rns_unpad_rows,
-    )
+    from .fold_kernels import G1_CAP, G2_CAP, PAD_C, rns_fold_window, rns_fold_window_g2, rns_pad_rows
 
     W, B, N = sdigits.shape
     xs, ys = tables
@@ -446,37 +439,49 @@ def msm_table_affine_rns(rops, lf, tables, sdigits: torch.Tensor, tab_bound, seg
             qx = xs[:, w][:, mag[w], n_idx].to(torch.int32)  # (80, B, N)
             qy = ys[:, w][:, mag[w], n_idx].to(torch.int32)
             acc = rns_fold_window(rops.f, rops.b3, acc, (qx, qy), sgn[w], tab_bound, cap)
-    accv = tuple(rops.wrap(rns_unpad_rows(rops.f, r), cap) for r in acc)
-    return _rns_fold_reduce(rops, lf, accv, cap, seg_sizes)
+    return _rns_fold_reduce(rops, lf, acc, cap, seg_sizes)
 
 
 def _rns_fold_reduce(rops, lf, acc, cap, seg_sizes=None):
-    """Tree (or segment) reduction of the folded accumulator + the bridge to
-    limb form.  With seg_sizes, consecutive equal-width segments share one
-    tree reduction over a (..., count, n_s) view."""
+    """Tree (or segment) reduction of the folded accumulator, 3 padded
+    (80, [2,] B, N) int32 tiles, and the bridge to limb form: one
+    `rns_tree_level` per halving (one tree-kernel launch on the card), the
+    tiles kept padded until the (B, S) sums are unpadded for the bridge;
+    timed as the device span "msm.reduce" (utils/profiling.py).  With
+    seg_sizes, consecutive equal-width segments share one tree over a
+    (B, count, n_s) view."""
     from ..curves import rns_point as rpt
+    from .fold_kernels import rns_tree_level, rns_unpad_rows
 
-    if seg_sizes is None:
-        red = rpt.tree_reduce(rops, acc, cap)
-        return rpt.rns_point_to_limb(rops, rops.f, lf, red)
-    assert sum(seg_sizes) == acc[0].res.shape[-1]
-    groups = []
-    for n_s in seg_sizes:
-        if groups and groups[-1][0] == n_s:
-            groups[-1][1] += 1
+    f, g2 = rops.f, rops.fp2
+    b = rops.b3c if g2 else rops.b3
+
+    def tree(tiles):
+        n = tiles[0].shape[-1]
+        assert n & (n - 1) == 0, "the tree reduction halves a power of two"
+        while tiles[0].shape[-1] > 1:
+            tiles = rns_tree_level(f, b, tiles, cap, g2)
+        return tiles
+
+    with profiling.device_span("msm.reduce", acc[0].device, units=acc[0].shape[-2]):
+        if seg_sizes is None:
+            red = tree(acc)
         else:
-            groups.append([n_s, 1])
-    parts, off = [], 0
-    for n_s, count in groups:
-        chunk = tuple(
-            rops.wrap(v.res[..., off : off + n_s * count].reshape(tuple(v.res.shape[:-1]) + (count, n_s)), v.a)
-            for v in acc)
-        red = rpt.tree_reduce(rops, chunk, cap)  # (..., count, 1)
-        parts.append(tuple(rops.wrap(v.res[..., 0], v.a) for v in red))
-        off += n_s * count
-    red = tuple(rops.wrap(torch.cat([p[k].res for p in parts], dim=-1), max(p[k].a for p in parts))
-                for k in range(3))
-    return rpt.rns_point_to_limb(rops, rops.f, lf, red)
+            assert sum(seg_sizes) == acc[0].shape[-1]
+            groups = []
+            for n_s in seg_sizes:
+                if groups and groups[-1][0] == n_s:
+                    groups[-1][1] += 1
+                else:
+                    groups.append([n_s, 1])
+            parts, off = [], 0
+            for n_s, count in groups:
+                chunk = tuple(t[..., off : off + n_s * count].reshape(tuple(t.shape[:-1]) + (count, n_s))
+                              .contiguous() for t in acc)
+                parts.append(tuple(t[..., 0] for t in tree(chunk)))  # (..., B, count)
+                off += n_s * count
+            red = tuple(torch.cat([p[k] for p in parts], dim=-1) for k in range(3))
+        return rpt.rns_point_to_limb(rops, f, lf, tuple(rops.wrap(rns_unpad_rows(f, t), cap) for t in red))
 
 
 def pick_table_c(n: int, g2: bool, budget_mb: int = 1536, nbits: int = 255) -> int:

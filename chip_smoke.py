@@ -23,9 +23,14 @@ Phases (each raises on failure; nothing is caught):
      constants (check_mont_mul); K5 and K6 (the lazy columns) against
      their plain versions on Fp, Fr and the mock field at 1 and 13 lanes and
      one past a full wave, on stacked products and on reductions with and
-     without folds before the REDC (check_lazy); time K3 and K1 at 16384
-     lanes, K2 at 8192 lanes, K4 at (24, 8192) and (24, 16384) and K5 and
-     K6 at (36, 1536) and (36, 131072) beside their plain versions;
+     without folds before the REDC (check_lazy); K7 (one level of the RNS
+     tree reduction) against its plain version on G1 and G2 at 1 and 13
+     output lanes, one past a full wave of its blocks, on a merged (B,
+     count, n_s) view and down a whole tree (check_tree); time K3 and K1 at
+     16384 lanes, K2 at 8192 lanes, K4 at (24, 8192) and (24, 16384), K5 and
+     K6 at (36, 1536) and (36, 131072) beside their plain versions, and K7
+     at the cells' first-level shapes (TREE_TIMED) beside its plain version
+     and the aten level it replaced;
   4. setup: ffi.test_create_parameters(), the MiMC-322 CRS (constants seed
      42) on its default engine, Bls12Engine() on the card, then
      BatchProver(msm_strategy="rns") with its padded RNS tables;
@@ -34,7 +39,10 @@ Phases (each raises on failure; nothing is caught):
      162 per step and 1847 per decode; the plain multiply never on a CUDA
      tensor; K5 once per LimbField.lazy_mul_many call and K6 once per
      LazyCols.reduce call, both counted by `counted`, and no plain lazy call
-     on a CUDA tensor); the 16 proofs verified on the card by one BatchVerifier.verify,
+     on a CUDA tensor; K7 48 times, once per level of each MSM's tree, as
+     derived_trees reads off the prover, and no plain tree level on a CUDA
+     tensor); the 16 proofs
+     verified on the card by one BatchVerifier.verify,
      proof 0 by verify_proof, a batch with one wrong public input rejected
      (each with K4's count from pairing_k4_counts, no plain multiply, no K1
      or K2), and the first 4 again by the host oracle's loop (a CPU
@@ -150,9 +158,10 @@ SOURCES = {
     "rns_fold_window_g2": "bellman_mpc_tpu_torch/csrc/fold_kernels.cu",
     "lazy_cols": "bellman_mpc_tpu_torch/csrc/mont_mul.cu",
     "lazy_redc": "bellman_mpc_tpu_torch/csrc/mont_mul.cu",
+    "rns_tree_add": "bellman_mpc_tpu_torch/csrc/fold_kernels.cu",
 }
-# the TPU kernel each replaces; K5 and K6 have no TPU counterpart (the
-# reference leaves the lazy columns to XLA's fusion)
+# the TPU kernel each replaces; K5, K6 and K7 have no TPU counterpart (the
+# reference leaves the lazy columns and the tree reduction to XLA)
 REPLACES = {
     "mont_mul": "bellman_mpc_tpu/ops/pallas_kernels.py:87",
     "rns_mul_many": "bellman_mpc_tpu/ops/pallas_kernels.py:268",
@@ -160,6 +169,7 @@ REPLACES = {
     "rns_fold_window_g2": "bellman_mpc_tpu/ops/pallas_kernels.py:663",
     "lazy_cols": "none",
     "lazy_redc": "none",
+    "rns_tree_add": "none",
 }
 # H100 SXM device memory rate and dense int8 tensor-core rate (NVIDIA data
 # sheet), and 32-bit integer instructions per clock per SM at compute
@@ -364,6 +374,97 @@ def check_kernels(device, rng: random.Random, g1_lanes=16384, g2_lanes=8192, wid
             results[name]["max_abs_err"] = max(results[name]["max_abs_err"], err)
             log(f"{name}: bit-exact over 2 chained windows at {n} lanes")
     return results
+
+
+# K7's first-level shapes in the cells (output lanes = B x N / 2): G1 over
+# SHA-256's and the Spend's h (16 x 32,768, 4 x 131,072) and MiMC-322's h
+# (256 x 1,024); G2 over the Spend's b (4 x 65,536) and MiMC-322's b (256 x
+# 512; SHA-256's 16 x 8,192 has as many lanes)
+TREE_TIMED = (("g1", 16, 32768), ("g1", 256, 1024), ("g2", 4, 65536), ("g2", 256, 512))
+
+
+def tree_launches(widths, passes: int) -> int:
+    """K7 launches of one rns step: one per halving of each MSM's base axis,
+    in every pass."""
+    return passes * sum(n.bit_length() - 1 for n in widths)
+
+
+def derived_trees(bp) -> int:
+    """K7 launches of one step of an rns BatchProver, from what it built:
+    tree_launches over its tables' base counts and passes; the merged G1
+    table reduces each run of equal segment widths as one tree."""
+    seg = bp._g1_seg_sizes if bp.merge_g1 else ()
+    runs = [n for i, n in enumerate(seg) if i == 0 or seg[i - 1] != n]
+    sets = [n for name, n, _, _ in bp.table_info() if name != "g1_merged"]
+    return tree_launches(sets, bp.table_passes) + tree_launches(runs, 1)
+
+
+def tree_bound(int_rate: float, g2: bool, lanes: int):
+    """K7's (bound_ms, bound_by) at `lanes` output lanes: two points read and
+    one written (9 coordinates of 71 int32 words, twice for G2), or its 12
+    RNS products (36 for G2: Karatsuba)."""
+    tc, i32 = rns_mul_ops()
+    comps, muls = (2, 36) if g2 else (1, 12)
+    return bound(9 * comps * 71 * 4 * lanes, muls * i32 * lanes, int_rate, muls * tc * lanes)
+
+
+def check_tree(device, rng: random.Random):
+    """Phase 3, K7 (`rns_tree_level`): bit-exact against tree_level_plain on
+    G1 and G2 at 1 and 13 output lanes, one past a full wave of its blocks
+    and on a merged (B, count, n_s) view, then down a whole tree; timed at
+    the cells' first-level shapes (TREE_TIMED) beside its plain version and
+    the aten level it replaced (rpt.point_add over RnsField), with its bound."""
+    import torch
+
+    from bellman_mpc_tpu_torch.curves import rns_point as rpt
+    from bellman_mpc_tpu_torch.ops import fold_kernels as fk
+
+    f = rpt.default_rns_field()
+    m = torch.from_numpy(fk.pad_consts(f)["m_pad"]).to(device)
+
+    def tiles(g2, shape):
+        full = (fk.PAD_C,) + ((2,) if g2 else ()) + tuple(shape)
+        mb = m.reshape((fk.PAD_C,) + (1,) * (len(full) - 1))
+        return tuple((torch.randint(0, 1 << 30, full, device=device) % mb).to(torch.int32) for _ in range(3))
+
+    out = {"max_abs_err": 0, "cases": [], "timed": []}
+    for g2 in (False, True):
+        rops = rpt.rns_g2_ops() if g2 else rpt.rns_g1_ops()
+        b, cap = (rops.b3c, fk.G2_CAP) if g2 else (rops.b3, fk.G1_CAP)
+        wave = fk.tree_wave_lanes(g2) + 1
+        for shape in ((1, 2), (13, 2), (1, 26), (1, 2 * wave), (2, 3, 8)):
+            acc = tiles(g2, shape)
+            err = max_abs_err(fk.rns_tree_level(f, b, acc, cap, g2), fk.tree_level_plain(f, b, acc, cap, g2))
+            assert err == 0, f"K7 disagrees with its plain version at {'G2' if g2 else 'G1'} {shape}: {err}"
+            out["cases"].append(f"{'G2' if g2 else 'G1'} {list(shape)}")
+        acc = want = tiles(g2, (3, 64))
+        while acc[0].shape[-1] > 1:  # a whole tree, each level's output the next one's input
+            acc = fk.rns_tree_level(f, b, acc, cap, g2)
+            want = fk.tree_level_plain(f, b, want, cap, g2)
+            assert max_abs_err(acc, want) == 0, f"K7 disagrees down the tree at {tuple(acc[0].shape)}"
+        out["cases"].append(f"{'G2' if g2 else 'G1'} tree of 64 x 3")
+    log(f"K7 rns_tree_add: bit-exact at {len(out['cases'])} cases: " + "; ".join(out["cases"]))
+    int_rate = int32_ops_per_s()
+    for group, B, n in TREE_TIMED:
+        g2 = group == "g2"
+        rops = rpt.rns_g2_ops() if g2 else rpt.rns_g1_ops()
+        b, cap = (rops.b3c, fk.G2_CAP) if g2 else (rops.b3, fk.G1_CAP)
+        acc = tiles(g2, (B, n))
+        halves = [tuple(rops.wrap(fk.rns_unpad_rows(f, t[..., s]).contiguous(), Fraction(cap)) for t in acc)
+                  for s in (slice(0, n // 2), slice(n // 2, None))]
+        lanes = B * n // 2
+        bound_ms, bound_by = tree_bound(int_rate, g2, lanes)
+        out["timed"].append(dict(
+            group=group, B=B, N=n, lanes=lanes,
+            ms=graph_time_ms(lambda: fk.rns_tree_level(f, b, acc, cap, g2), 10),
+            eager_ms=cuda_time_ms(lambda: fk.rns_tree_level(f, b, acc, cap, g2), 10),
+            plain_ms=cuda_time_ms(lambda: fk.tree_level_plain(f, b, acc, cap, g2), 2),
+            aten_ms=cuda_time_ms(lambda: rpt.point_add(rops, *halves), 2),
+            bound_ms=bound_ms, bound_by=bound_by))
+        log(f"K7 at {group} ({B}, {n}): {out['timed'][-1]}")
+        del acc, halves
+        torch.cuda.empty_cache()
+    return out
 
 
 def fold_window_cases(bp, rng: random.Random):
@@ -652,11 +753,11 @@ def pairing_k4_counts() -> dict:
 
 
 def check_no_fold(counts: dict, what: str) -> None:
-    """No plain multiply or lazy column call on the card and no fold or RNS
-    kernel."""
-    assert counts["mont_mul_plain"] == counts["lazy_plain"] == 0, (what, counts)
-    assert counts["rns_fold_window"] == counts["rns_fold_window_g2"] == counts["rns_mul_many"] == 0, (
-        what, counts)
+    """No plain multiply, lazy column call or tree level on the card and no
+    fold, tree or RNS kernel."""
+    assert counts["mont_mul_plain"] == counts["lazy_plain"] == counts["tree_plain"] == 0, (what, counts)
+    assert (counts["rns_fold_window"] == counts["rns_fold_window_g2"] == counts["rns_mul_many"]
+            == counts["rns_tree_add"] == 0), (what, counts)
 
 
 def check_pairing_counts(counts: dict, k4: int, what: str) -> None:
@@ -1293,6 +1394,7 @@ def opt_in(kl, engine, params, constants, circuits, want_bytes, k4, name: str) -
     if widths == MIMC322_WIDTHS:
         assert folds == MIMC322_FOLDS[name], (name, folds)
     assert c_step["mont_mul"] == k4["step"] and c_step["mont_mul_plain"] == 0 and c_step["rns_mul_many"] == 0, c_step
+    assert c_step["rns_tree_add"] == derived_trees(bp) and c_step["tree_plain"] == 0, (name, c_step)
     assert c_dec["mont_mul"] == k4["decode"], c_dec
     check_no_fold(c_dec, f"{name} decode")
     assert [proof_to_bytes(p) for p in proofs] == want_bytes, f"{name}: proofs differ from rns's"
@@ -1300,7 +1402,8 @@ def opt_in(kl, engine, params, constants, circuits, want_bytes, k4, name: str) -
     ops = step_ops(bp, args)
     out = {"build_s": build_s, "step_s": statistics.median(steps), "steps_s": steps, "decode_s": decode_s,
            "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30, "k1_step": folds[0], "k2_step": folds[1],
-           "k4_step": c_step["mont_mul"], "k4_decode": c_dec["mont_mul"], "aten_ops_step": ops["aten_ops"],
+           "k4_step": c_step["mont_mul"], "k4_decode": c_dec["mont_mul"], "k7_step": c_step["rns_tree_add"],
+           "aten_ops_step": ops["aten_ops"],
            "digit_path": ops["digit_path"], "k1_lanes": want["k1_lanes"], "k2_lanes": want["k2_lanes"],
            "tables": tables}
     log(f"opt-in {name}: {out}")
@@ -1846,7 +1949,7 @@ def counted(kl, fn):
     """Run fn() with every launch count set to 0 just before it; returns
     (result, the counts read just after, seconds).  `mont_mul_plain` counts
     the calls of K4's plain version on a CUDA tensor, `lazy_plain` those of
-    K5's and K6's; `lazy_products` and `lazy_reductions` count the calls of
+    K5's and K6's, `tree_plain` those of K7's; `lazy_products` and `lazy_reductions` count the calls of
     LimbField.lazy_mul_many and LazyCols.reduce (on any device), each of
     which launches K5 or K6 once on a CUDA tensor."""
     import torch
@@ -1874,7 +1977,8 @@ def counted(kl, fn):
         for (cls, name, _), orig in zip(spied, originals):
             setattr(cls, name, orig)
     lazy_plain = kl.plain_counts["lazy_cols"] + kl.plain_counts["lazy_redc"]
-    return (out, dict(kl.launch_counts, mont_mul_plain=kl.plain_counts["mont_mul"], lazy_plain=lazy_plain, **calls),
+    return (out, dict(kl.launch_counts, mont_mul_plain=kl.plain_counts["mont_mul"], lazy_plain=lazy_plain,
+                      tree_plain=kl.plain_counts["rns_tree_add"], **calls),
             time.perf_counter() - t0)
 
 
@@ -1916,6 +2020,7 @@ def main() -> int:
     checks = check_kernels(device, rng)
     checks["mont_mul"] = check_mont_mul(device, rng)
     checks["lazy"] = check_lazy(device, rng)
+    checks["tree"] = check_tree(device, rng)
     print("kernel checks: " + json.dumps(checks), flush=True)
     if kernels_only:
         return 0
@@ -1964,6 +2069,10 @@ def main() -> int:
     assert counts["mont_mul_plain"] == 0, counts
     check_lazy_launches(counts, "prove_batch")
     assert counts["lazy_cols"] > 0 and counts["lazy_redc"] > 0, counts
+    # K7 once per level of every MSM's tree reduction: 48 at MiMC-322's widths
+    trees = derived_trees(bp)
+    assert trees == tree_launches(MIMC322_WIDTHS, 1) == 48, trees
+    assert counts["rns_tree_add"] == trees and counts["tree_plain"] == 0, counts
     if mesh_only:
         del bp
         torch.cuda.empty_cache()
@@ -1986,6 +2095,7 @@ def main() -> int:
     decoded, decode_counts, decode_s = counted(kl, lambda: bp.decode(*rns_out))
     assert decode_counts["mont_mul"] == k4["decode"] and decode_counts["mont_mul_plain"] == 0, decode_counts
     check_lazy_launches(decode_counts, "decode")
+    assert step_counts["rns_tree_add"] == trees and decode_counts["rns_tree_add"] == 0, (step_counts, decode_counts)
     assert counts["lazy_cols"] == step_counts["lazy_cols"] + decode_counts["lazy_cols"], (counts, step_counts)
     assert counts["lazy_redc"] == step_counts["lazy_redc"] + decode_counts["lazy_redc"], (counts, step_counts)
     assert decoded == proofs
@@ -2148,6 +2258,9 @@ def main() -> int:
         timed[name] = lazy_timed[LAZY_TIMED_LANES[0]][name]
         errs[name] = checks["lazy"]["max_abs_err"]
         bounds[name] = (timed[name]["bound_ms"], timed[name]["bound_by"])
+    timed["rns_tree_add"] = checks["tree"]["timed"][0]  # a G1 first level of SHA-256's and the Spend's
+    errs["rns_tree_add"] = checks["tree"]["max_abs_err"]
+    bounds["rns_tree_add"] = (timed["rns_tree_add"]["bound_ms"], timed["rns_tree_add"]["bound_by"])
     launches = {k: counts[k] for k in SOURCES}
     kernels = []
     for name in SOURCES:
@@ -2186,6 +2299,11 @@ def main() -> int:
             kernels[-1].update(
                 launches_step=step_counts[name], launches_decode=decode_counts[name],
                 shapes=[{"shape": [36, n], **t[name]} for n, t in lazy_timed.items()])
+        if name == "rns_tree_add":  # per step, per opt-in, at each first level
+            kernels[-1].update(
+                launches_step=step_counts[name], launches_decode=decode_counts[name],
+                **{f"launches_step_{o}": oi[o]["k7_step"] for o in OPT_INS},
+                shapes=checks["tree"]["timed"])
     total_s = time.perf_counter() - t_start
     print(json.dumps({
         "setup_s": setup_s, "prover_build_s": prover_build_s, "prove_batch_s": prove_s,

@@ -2,8 +2,10 @@
 the port's device paths against the CPU or the host oracle: the pairing,
 the ceremony, the group iNTT, the limb MSMs and the comb, every
 BatchProver strategy against the rns proofs, the lazy columns' kernels (K5,
-K6) in the point operations and the rns prover, the NTT bench's launches,
-and the (2, 2) logical mesh of one card against the table strategy.
+K6) in the point operations and the rns prover, the tree reduction's kernel
+(K7) alone and in the rns prover against the aten route it replaced, the
+NTT bench's launches, and the (2, 2) logical mesh of one card against the
+table strategy.
 
 Imports neither jax nor the reference, so it runs on the GPU machine:
 
@@ -12,8 +14,8 @@ Imports neither jax nor the reference, so it runs on the GPU machine:
 Every test here needs a CUDA card and skips without one.  Lane counts that
 are not a multiple of the RNS kernels' 8-lane tile or the limb multiply's
 64-thread block exercise the ragged edge; "wave+1" is one lane past a full
-wave of the kernel's own persistent blocks (K1, K2: 8-lane tiles, K3: units
-of 6 tiles), so one block takes a second, ragged unit, or for K4, K5 and
+wave of the kernel's own persistent blocks (K1, K2, K7: 8-lane tiles, K3:
+units of 6 tiles), so one block takes a second, ragged unit, or for K4, K5 and
 K6 one lane past the blocks the card holds at once.
 """
 
@@ -151,6 +153,65 @@ def test_k2_chained_windows(dev, lanes):
         acc = fk.rns_fold_window_g2(F, 12, acc, q, sg, Fraction(37), Fraction(fk.G2_CAP))
         want = _k2_plain(want, q, sg)
         assert all(torch.equal(g, w) for g, w in zip(acc, want))
+
+
+# ------------------------------------------------ the tree reduction (K7)
+
+
+def _tree_tiles(rng, g2, shape, dev):
+    """Three padded (80, [2,] *shape) tiles of random canonical residues."""
+    m = torch.tensor(fk.pad_consts(F)["m_pad"], device=dev)
+    full = (fk.PAD_C,) + ((2,) if g2 else ()) + tuple(shape)
+    g = torch.Generator(device=dev).manual_seed(rng.randrange(1 << 30))
+    mb = m.reshape((fk.PAD_C,) + (1,) * (len(full) - 1))
+    return tuple((torch.randint(0, 1 << 30, full, generator=g, device=dev) % mb).to(torch.int32) for _ in range(3))
+
+
+def _tree_args(g2):
+    rops = rpt.rns_g2_ops() if g2 else rpt.rns_g1_ops()
+    return (rops.b3c, fk.G2_CAP) if g2 else (rops.b3, fk.G1_CAP)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(1, 2), (13, 2), (1, 26), "wave+1", (2, 3, 8)],
+                         ids=["1", "13", "13-halves", "wave+1", "merged-view"])
+@pytest.mark.parametrize("g2", [False, True], ids=["G1", "G2"])
+def test_k7_matches_plain(dev, g2, shape):
+    """One tree level at 1 and 13 output lanes (as 13 outer lanes and as one
+    row of 26), one lane past a full wave of its blocks, and on the merged
+    G1 fold's (B, count, n_s) view, bit-exact against the plain level."""
+    if shape == "wave+1":
+        shape = (1, 2 * (fk.tree_wave_lanes(g2) + 1))
+    rng = random.Random(str((g2, shape)))
+    b, cap = _tree_args(g2)
+    acc = _tree_tiles(rng, g2, shape, dev)
+    before = kernel_lib.launch_counts["rns_tree_add"], kernel_lib.plain_counts["rns_tree_add"]
+    got = fk.rns_tree_level(F, b, acc, cap, g2)
+    assert kernel_lib.launch_counts["rns_tree_add"] == before[0] + 1
+    assert kernel_lib.plain_counts["rns_tree_add"] == before[1]
+    want = fk.tree_level_plain(F, b, acc, cap, g2)
+    assert all(g.shape == w.shape and torch.equal(g, w) for g, w in zip(got, want))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("g2", [False, True], ids=["G1", "G2"])
+def test_k7_whole_tree(dev, g2):
+    """A whole tree of (3, 64) lanes, each level's output the next one's
+    input, against the plain levels; the result against rpt.tree_reduce
+    over RnsField on the unpadded residues."""
+    from fractions import Fraction
+
+    rng = random.Random(70 + g2)
+    b, cap = _tree_args(g2)
+    rops = rpt.rns_g2_ops() if g2 else rpt.rns_g1_ops()
+    acc = want = _tree_tiles(rng, g2, (3, 64), dev)
+    start = tuple(rops.wrap(fk.rns_unpad_rows(F, t), Fraction(cap)) for t in acc)
+    while acc[0].shape[-1] > 1:
+        acc = fk.rns_tree_level(F, b, acc, cap, g2)
+        want = fk.tree_level_plain(F, b, want, cap, g2)
+        assert all(torch.equal(g, w) for g, w in zip(acc, want))
+    red = rpt.tree_reduce(rops, start, cap)
+    assert all(torch.equal(fk.rns_unpad_rows(F, g), w.res) for g, w in zip(acc, red))
 
 
 @pytest.mark.cuda
@@ -317,7 +378,7 @@ def test_device_group_intt_matches_host_butterflies(dev, group):
 
 def _no_fold():
     return (kernel_lib.launch_counts["rns_fold_window"] == kernel_lib.launch_counts["rns_fold_window_g2"]
-            == kernel_lib.launch_counts["rns_mul_many"] == 0)
+            == kernel_lib.launch_counts["rns_mul_many"] == kernel_lib.launch_counts["rns_tree_add"] == 0)
 
 
 @pytest.mark.cuda
@@ -591,6 +652,42 @@ def test_batch_prover_lazy_kernels_match_plain(mimc8, monkeypatch):
     assert kernel_lib.plain_counts["lazy_cols"] == calls["lazy_cols"] // 2
 
 
+@pytest.mark.cuda
+def test_batch_prover_tree_kernel_matches_aten(mimc8, monkeypatch):
+    """Every reduce of the rns BatchProver's step on the card launches K7
+    log2 N times, once per level, and gives the limb points of the aten
+    route it replaced (unpad, rpt.tree_reduce, the bridge) on the same
+    accumulator; no plain level on the card; the fixture's proofs."""
+    from fractions import Fraction
+
+    from bellman_mpc_tpu_torch.fields.bls12_381 import fp as lfp
+    from bellman_mpc_tpu_torch.models import MiMCDemo
+    from bellman_mpc_tpu_torch.ops import msm
+    from bellman_mpc_tpu_torch.parallel import BatchProver
+
+    eng, params, constants, circuits, want = mimc8
+    bp = BatchProver(eng, params, MiMCDemo(constants, 0, 0))
+    reduce, seen = msm._rns_fold_reduce, []
+
+    def checked(rops, lf, acc, cap, seg_sizes=None):
+        before = kernel_lib.launch_counts["rns_tree_add"]
+        out = reduce(rops, lf, acc, cap, seg_sizes)
+        n = acc[0].shape[-1]
+        assert kernel_lib.launch_counts["rns_tree_add"] - before == n.bit_length() - 1
+        start = tuple(rops.wrap(fk.rns_unpad_rows(F, t), Fraction(cap)) for t in acc)
+        aten = rpt.rns_point_to_limb(rops, F, lfp, rpt.tree_reduce(rops, start, cap))
+        assert all(torch.equal(g, w) for g, w in zip(out, aten))
+        seen.append((rops.fp2, n))
+        return out
+
+    monkeypatch.setattr(msm, "_rns_fold_reduce", checked)
+    kernel_lib.reset_launch_counts()
+    assert bp.prove_batch(circuits) == want
+    assert len(seen) == 5 and sum(g2 for g2, _ in seen) == 1, seen
+    assert kernel_lib.launch_counts["rns_tree_add"] == sum(n.bit_length() - 1 for _, n in seen)
+    assert kernel_lib.plain_counts["rns_tree_add"] == 0
+
+
 # ------------------------------------------------ the opt-ins (BMT_GLV, ...)
 
 
@@ -669,6 +766,8 @@ def test_batch_prover_opt_ins_match_rns(mimc8, env, strategy, monkeypatch):
     k1 = sum(_windows(c, g1_bits) for name, c in tables.items() if name != "b2")
     k2 = _windows(tables["b2"], g2_bits) if tables else 0
     assert (kernel_lib.launch_counts["rns_fold_window"], kernel_lib.launch_counts["rns_fold_window_g2"]) == (k1, k2)
+    assert kernel_lib.plain_counts["rns_tree_add"] == 0
+    assert (kernel_lib.launch_counts["rns_tree_add"] > 0) == (strategy == "rns")
 
 
 @pytest.mark.cuda

@@ -122,3 +122,79 @@ def test_kernel_consts_layout():
     assert np.array_equal(ifac2[hi[:k]], TF.ifac2_np[k : 2 * k]) and not np.delete(ifac2, hi[:k]).any()
     assert np.array_equal(mpmod[:k], TF.mp_mod_np[:k]) and not mpmod[k:].any()
     assert list(words[6 * fk.PAD_C :]) == [TF.mr, TF.mpinv_mr]
+
+
+# ------------------------------------------------- the tree reduction's level
+
+
+def _rand_res(rng, shape):
+    n = int(np.prod(shape))
+    return TF.encode([rng.randrange(TF.p) for _ in range(n)]).res.reshape((TF.C,) + tuple(shape))
+
+
+def _ops_cap(g2):
+    return (trp.rns_g2_ops(), fk.G2_CAP) if g2 else (trp.rns_g1_ops(), fk.G1_CAP)
+
+
+@pytest.mark.parametrize("g2", [False, True], ids=["G1", "G2"])
+def test_tree_schedule_matches_formula(g2, monkeypatch):
+    """The K sequence the tree kernel is handed is the one rpt.point_add
+    over RnsField takes at input bounds (cap, cap) (a stacked G2 sub once
+    per component, as the kernel consumes them), as long as the kernel
+    reads, and the formula maps the cap into itself."""
+    ops, cap = _ops_cap(g2)
+    b = ops.b3c if g2 else ops.b3
+    ks, real = [], TF.kp_table
+
+    def recording(K, like):  # add_fixpoint's one lane: (C, 1), or (C, 2, 1) stacked
+        comps = {(TF.C, 1): 1, (TF.C, 2, 1): 2}[tuple(like.shape)]
+        ks.extend([K] * comps)
+        return real(K, like)
+
+    monkeypatch.setattr(TF, "kp_table", recording)
+    assert trp.add_fixpoint(ops, Fraction(cap)) <= cap
+    assert fk.tree_schedule(TF, b, cap, g2) == tuple(ks)
+    assert len(ks) == (fk.G2_TREE_NUM_K if g2 else fk.G1_TREE_NUM_K) and all(k >= 1 for k in ks)
+
+
+@pytest.mark.parametrize("g2", [False, True], ids=["G1", "G2"])
+def test_tree_level_plain_matches_point_add(g2):
+    """One padded level (outer 3, n = 8) equals rpt.point_add over RnsField
+    on the two halves: the same residues, so the same decoded points."""
+    rng = random.Random(30 + g2)
+    ops, cap = _ops_cap(g2)
+    lead = (2,) if g2 else ()
+    pts = [_rand_res(rng, lead + (3, 8)) for _ in range(3)]
+    got = fk.rns_tree_level(TF, ops.b3c if g2 else ops.b3, tuple(fk.rns_pad_rows(TF, t) for t in pts), cap, g2)
+    p, q = (tuple(ops.wrap(t[..., s], Fraction(cap)) for t in pts) for s in (slice(0, 4), slice(4, 8)))
+    want = trp.point_add(ops, p, q)
+    for g, w in zip(got, want):
+        assert g.shape == (fk.PAD_C,) + lead + (3, 4)
+        assert torch.equal(fk.rns_unpad_rows(TF, g), w.res)
+        assert TF.decode(trp.RnsVal(TF, fk.rns_unpad_rows(TF, g), w.a)) == TF.decode(w)
+
+
+@pytest.mark.parametrize("g2,seg_sizes", [(False, None), (True, None), (False, (4, 4, 8, 2, 2))],
+                         ids=["G1", "G2", "G1-segments"])
+def test_fold_reduce_matches_tree_reduce(g2, seg_sizes):
+    """msm._rns_fold_reduce on the padded accumulator gives the limb points
+    of the aten route it replaced: unpad, rpt.tree_reduce (per segment),
+    the bridge."""
+    from bellman_mpc_tpu_torch.fields.bls12_381 import fp
+    from bellman_mpc_tpu_torch.ops import msm
+
+    rng = random.Random(40 + g2)
+    ops, cap = _ops_cap(g2)
+    lead = (2,) if g2 else ()
+    n = sum(seg_sizes) if seg_sizes else 16
+    acc = [_rand_res(rng, lead + (2, n)) for _ in range(3)]
+    got = msm._rns_fold_reduce(ops, fp, tuple(fk.rns_pad_rows(TF, t) for t in acc), Fraction(cap), seg_sizes)
+    parts, off = [], 0
+    for n_s in seg_sizes or (n,):
+        red = trp.tree_reduce(ops, tuple(ops.wrap(t[..., off : off + n_s], Fraction(cap)) for t in acc), cap)
+        parts.append(red)
+        off += n_s
+    want = trp.rns_point_to_limb(ops, TF, fp, tuple(
+        ops.wrap(torch.cat([p[k].res for p in parts], dim=-1), Fraction(cap)) for k in range(3)))
+    assert all(torch.equal(g, w) for g, w in zip(got, want))
+    assert got[0].shape[-1] == len(seg_sizes or (n,))

@@ -21,6 +21,7 @@ import torch
 from bellman_mpc_tpu.curves.device import g1_device as ref_g1
 from bellman_mpc_tpu.curves.device import g2_device as ref_g2
 from bellman_mpc_tpu.fields import bls12_381 as ref_bc
+from bellman_mpc_tpu.ops import group_ntt as ref_group_ntt_module
 from bellman_mpc_tpu.ops.group_ntt import group_ntt as ref_group_ntt
 from bellman_mpc_tpu_torch.curves.device import g1_device, g2_device
 from bellman_mpc_tpu_torch.curves.host import G1, G2
@@ -35,8 +36,16 @@ HOST = bc.fr_host
 
 
 def _ref_ntt(group, pts, inverse):
-    out = jax.jit(lambda p: ref_group_ntt(group.ops, ref_bc.fr_host, p, inverse=inverse))(pts)
-    return tuple(np.asarray(x) for x in out)
+    """The reference's group NTT under jit.  Its twiddle cache
+    (`_stage_twiddle_bits`) keeps the arrays it built while tracing, so it
+    is cleared before and after the call: a worker that also runs
+    tests/test_group_ntt.py must not reuse another trace's values."""
+    ref_group_ntt_module._stage_twiddle_bits.cache_clear()
+    try:
+        out = jax.jit(lambda p: ref_group_ntt(group.ops, ref_bc.fr_host, p, inverse=inverse))(pts)
+        return tuple(np.asarray(x) for x in out)
+    finally:
+        ref_group_ntt_module._stage_twiddle_bits.cache_clear()
 
 
 def _limbs(p):
